@@ -2,17 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
+Builds the seven CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
 main path's shapes and times both, reproduces the golden proof bytes of
-MulCircuit (k = 4), drives the main path once: IPA/Vesta params ->
-keygen_vk -> keygen_pk -> create_proof -> verify_proof for BenchCircuit at
-k = 14, with the kernels' launch counters set to 0 just before and read just
-after. It then proves the same circuit twice more, warm: once plain, once
-with the four kernels timed by CUDA events and every kernel on the card traced
-by torch.profiler, which gives the device time of one proof. Last it
-reproduces the proof bytes of BenchCircuit at k = 10. Every phase prints one
-JSON line; any failure raises and exits non-zero. The last line is
+MulCircuit (k = 4), and drives two paths, each with the kernels' launch
+counters set to 0 just before it and read just after:
+
+* k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
+  verify_proof for BenchCircuit, which runs kernels 1-4. It then proves the
+  same circuit twice more, warm: once plain, once with the four kernels timed
+  by CUDA events and every kernel on the card traced by torch.profiler, which
+  gives the device time of one proof; and reproduces the proof bytes of
+  BenchCircuit at k = 10.
+* k = 16: the same entry points for BenchCircuit at k = 16, where keygen's
+  sigma commits, the vanishing argument's random commit and the verifier's
+  final MSM take the sorted-bucket MSM (kernels 5-7). The proof verifies, a
+  flipped byte is rejected, and the proof made again with the sorted MSM
+  switched off, then once more with it on, has the same bytes (those two
+  proofs are both warm, so their times compare); commit_lagrange(v) =
+  commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
+  their plain versions and msm_host at n = 2^16 + 1, and the sorted and the
+  bucket MSM are timed on the same 2^16 + 1 scalars and bases.
+
+Every phase prints one JSON line; any failure raises and exits non-zero. The
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -51,6 +64,8 @@ INT32_MUL_PER_S = 64 * 132 * 1.98e9
 # also multiplies twice by 3b = 15 on Pasta, which a shift and a subtraction do.
 MIXED_ADD_PRODUCTS = 11
 FULL_ADD_PRODUCTS = 12
+# RCB15 algorithm 9 (a = 0): 9 products, one of them by 3b
+DOUBLE_PRODUCTS = 8
 
 
 def mont_mul_instrs(p: int) -> int:
@@ -119,7 +134,8 @@ def main() -> int:
     from halo2_tpu_torch.circuits import MulCircuit, bench_circuit_for_k
     from halo2_tpu_torch.curves import Vesta
     from halo2_tpu_torch.fields import Fp
-    from halo2_tpu_torch.ops import _build, msm_bucket, ntt_cg
+    from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, ntt_cg
+    from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont, limbs_to_ints
     from halo2_tpu_torch.ops.msm import MSMBases, msm_host
@@ -128,6 +144,7 @@ def main() -> int:
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
     from halo2_tpu_torch.plonk.prover import create_proof
     from halo2_tpu_torch.plonk.verifier import verify_proof
+    from halo2_tpu_torch.poly.commitment import Blind
     from halo2_tpu_torch.poly.ipa import ParamsIPA
     from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite, TranscriptError
     from halo2_tpu_torch.utils.chacha import ChaCha20Rng
@@ -171,12 +188,22 @@ def main() -> int:
     report = {}
 
     def zero_launches():
-        for counts in (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES):
+        for counts in (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES):
             for name in counts:
                 counts[name] = 0
+        msm_mod.ROUTES.clear()
 
     def read_launches():
-        return {**ntt_cg.LAUNCHES, **msm_bucket.LAUNCHES}
+        return {**ntt_cg.LAUNCHES, **msm_bucket.LAUNCHES, **msm_sorted.LAUNCHES}
+
+    def read_routes():
+        return {f"{site}:{route}": cnt for (site, route), cnt in sorted(msm_mod.ROUTES.items())}
+
+    def diff(after, before):
+        return {name: after[name] - before.get(name, 0) for name in after}
+
+    k14_kernels = [*ntt_cg.LAUNCHES, *msm_bucket.LAUNCHES]
+    k16_kernels = list(msm_sorted.LAUNCHES)
 
     # ---- kernel 1: constant-geometry NTT level ----
     t0 = time.perf_counter()
@@ -367,8 +394,8 @@ def main() -> int:
     except (OpeningError, TranscriptError):
         rejected = True
     require(rejected, "k=14 proof with a flipped byte was accepted")
-    for name, cnt in launches.items():
-        require(cnt > 0, f"kernel {name} was not launched on the main path")
+    for name in k14_kernels:
+        require(launches[name] > 0, f"kernel {name} was not launched on the k=14 path")
     emit({"phase": "main_path", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
           "proof_bytes": len(proof), "verified": True, "flipped_byte_rejected": True,
           "stages": stages, "prove_spans": prove_stages, "launches": launches})
@@ -429,15 +456,241 @@ def main() -> int:
     require(sha == BENCH_K10_PROOF_SHA256, f"k=10 proof sha256 {sha} != {BENCH_K10_PROOF_SHA256}")
     emit({"phase": "golden_k10", "exact": True, "seconds": time.perf_counter() - t0})
 
+    # ---- the k = 16 path: BenchCircuit through the sorted-bucket MSM ----
+    k = 16
+    zero_launches()
+    marks = {}
+    t0 = time.perf_counter()
+    params16 = ParamsIPA.cached(Vesta, k, device=dev)
+    t1 = time.perf_counter()
+    circ = bench_circuit_for_k(k)
+    t2 = time.perf_counter()
+    vk = keygen_vk(params16, circ.without_witnesses())
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    marks["keygen_vk"] = (read_launches(), read_routes())
+    pk = keygen_pk(params16, vk, circ.without_witnesses())
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    marks["keygen_pk"] = (read_launches(), read_routes())
+    # kernels 5-7 timed by CUDA events through the proof
+    sorted_log = []
+    originals = {name: getattr(msm_sorted, name) for name in k16_kernels}
+    for name in k16_kernels:
+        setattr(msm_sorted, name, timed(name, originals[name], sorted_log))
+    reset_records()
+    try:
+        t5 = time.perf_counter()
+        tr = Blake2bWrite(Vesta)
+        create_proof(params16, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        proof16 = tr.finalize()
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+    finally:
+        for name in k16_kernels:
+            setattr(msm_sorted, name, originals[name])
+    prove_spans16 = get_records()
+    marks["prove"] = (read_launches(), read_routes())
+    reset_records()
+    ok = verify_proof(params16, vk, [[]], Blake2bRead(Vesta, proof16))
+    t7 = time.perf_counter()
+    verify_spans16 = get_records()
+    marks["verify"] = (read_launches(), read_routes())
+    require(ok is True, "k=16 verify")
+    launches16 = marks["verify"][0]
+    routes16 = marks["verify"][1]
+    stage_launches, stage_routes, prev = {}, {}, ({}, {})
+    for stage, (counts, routes) in marks.items():
+        stage_launches[stage] = diff(counts, prev[0])
+        stage_routes[stage] = {key: c for key, c in diff(routes, prev[1]).items() if c}
+        prev = (counts, routes)
+    for stage in ("keygen_vk", "prove", "verify"):
+        for name in k16_kernels:
+            require(stage_launches[stage][name] > 0, f"{name} was not launched in k=16 {stage}")
+    overflows = {key: cnt for key, cnt in routes16.items() if key.endswith(":overflow")}
+    require(not overflows, f"sorted-MSM overflows on the k=16 path: {overflows}")
+    bad = bytearray(proof16)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = verify_proof(params16, vk, [[]], Blake2bRead(Vesta, bytes(bad))) is not True
+    except (OpeningError, TranscriptError):
+        rejected = True
+    require(rejected, "k=16 proof with a flipped byte was accepted")
+    # the verifier's final MSM gets a list of host points: the host time to
+    # make its bases and their row tables afresh, as msm() does per call
+    t8 = time.perf_counter()
+    MSMBases(Vesta, params16.g + [params16.w, params16.u], dev).device_rows(dev)
+    torch.cuda.synchronize()
+    host_bases_s = time.perf_counter() - t8
+    sorted_proof_ms = {name: 0.0 for name in k16_kernels}
+    for name, start, end in sorted_log:
+        sorted_proof_ms[name] += start.elapsed_time(end)
+    emit({"phase": "main_path_k16", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
+          "proof_bytes": len(proof16), "verified": True, "flipped_byte_rejected": True,
+          "stages": dict(params_read_s=t1 - t0, synthesis_setup_s=t2 - t1, keygen_vk_s=t3 - t2,
+                         keygen_pk_s=t4 - t3, prove_s=t6 - t5, verify_s=t7 - t6),
+          "prove_spans": prove_spans16, "verify_spans": verify_spans16,
+          "verifier_host_bases_s": host_bases_s, "launches": launches16,
+          "launches_by_stage": stage_launches, "routes": routes16,
+          "routes_by_stage": stage_routes,
+          "sorted_overflows": sum(overflows.values()),
+          "sorted_kernels_event_ms_per_proof": sorted_proof_ms})
+
+    # the same proof with the sorted MSM switched off: the same bytes; then
+    # once more with it on, so that both timed proofs are warm
+    def prove16():
+        reset_records()
+        t0 = time.perf_counter()
+        tr = Blake2bWrite(Vesta)
+        create_proof(params16, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        out = tr.finalize()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, get_records()
+
+    zero_launches()
+    saved = msm_mod.SORTED_MSM_MIN
+    msm_mod.SORTED_MSM_MIN = 1 << 18
+    try:
+        unsorted_proof, unsorted_s, unsorted_spans = prove16()
+    finally:
+        msm_mod.SORTED_MSM_MIN = saved
+    require(unsorted_proof == proof16, "k=16 proof bytes differ with the sorted MSM switched off")
+    require(all(msm_sorted.LAUNCHES[name] == 0 for name in k16_kernels),
+            "the sorted MSM ran while switched off")
+    unsorted_launches = read_launches()
+    zero_launches()
+    warm_proof, warm_s, warm_spans = prove16()
+    require(warm_proof == proof16, "warm k=16 proof bytes differ from the first")
+    msm_span = f"msm n={(1 << k) + 1}"
+    emit({"phase": "k16_unsorted_same_bytes", "exact": True,
+          "prove_s": {"sorted_first": t6 - t5, "unsorted_warm": unsorted_s, "sorted_warm": warm_s},
+          "msm_span_s": {"sorted_first": prove_spans16.get(msm_span),
+                         "unsorted_warm": unsorted_spans.get(msm_span),
+                         "sorted_warm": warm_spans.get(msm_span)},
+          "launches": {"unsorted_warm": unsorted_launches, "sorted_warm": read_launches()}})
+
+    # the k = 16 params: commit_lagrange(v) = commit(intt(v)), both sorted
+    zero_launches()
+    n16 = 1 << 16
+    omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - k), q)
+    values = sctx.to_mont(rand_canon((n16,)))
+    coeffs = sctx.mul(ntt_cg.CgNttPlan(Fp, k, pow(omega, -1, q))(values), sctx.const(pow(n16, -1, q), dev))
+    blind = Blind(int(rng.integers(1, 1 << 62)))
+    lhs = params16.commit_lagrange(sctx.decode_ints(values), blind)
+    rhs = params16.commit(sctx.decode_ints(coeffs), blind)
+    require(lhs == rhs, "k=16 params: commit_lagrange(v) != commit(intt(v))")
+    require(read_routes() == {"commit:sorted": 1, "commit_lagrange:sorted": 1},
+            f"k=16 params check did not take the sorted MSM: {read_routes()}")
+    emit({"phase": "params_k16", "lagrange_equals_monomial": True, "routes": read_routes()})
+
+    # ---- kernels 5-7: sorted MSM at n = 2^16 + 1 on the k = 16 bases ----
+    t0 = time.perf_counter()
+    n = n16 + 1
+    bases = params16._bases_g  # g ++ [w]
+    canon = rand_canon((n,))
+    edge = [0, 1, q - 1, 1 << 15, ((1 << 15) << 48) % q, (1 << 16) - 1]
+    canon[: len(edge)] = torch.as_tensor(
+        np.frombuffer(b"".join(v.to_bytes(32, "little") for v in edge), dtype="<u2")
+        .reshape(len(edge), 16).astype(np.int32), device=dev)
+    px, py = bases.device_rows(dev)
+    classes = msm_sorted._cap_classes(n, msm_sorted.LANES, msm_sorted.KB, q)
+    entries, gstart, overflow = msm_sorted.prestage(canon, 16, classes)
+    require(not bool(overflow), "random scalars overflowed the sorted MSM")
+    bk = msm_sorted.msm_sorted_accum(entries, gstart, px, py, cc)
+    bp = msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, cc)
+    same("msm_sorted_accum", bk, bp, pctx, "msm_sorted_accum: kernel != plain")
+    wk = msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, cc)
+    wp = msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, cc)
+    same("msm_sorted_fold", wk, wp, pctx, "msm_sorted_fold: kernel != plain")
+    hk = msm_sorted.msm_sorted_horner(wk, cc)
+    hp = msm_sorted.msm_sorted_horner_plain(wk, cc)
+    same("msm_sorted_horner", hk, hp, pctx, "msm_sorted_horner: kernel != plain")
+    got = msm_sorted.msm_sorted(canon, bases)
+    t1 = time.perf_counter()
+    want = msm_host(limbs_to_ints(canon.cpu()), bases.host_points[:n], Vesta)
+    host_s = time.perf_counter() - t1
+    require(got == want, "sorted MSM n=2^16+1 != msm_host")
+    require(got == msm_bucket.msm_bucket_many(canon[None], bases, mont=False)[0],
+            "sorted MSM n=2^16+1 != bucket MSM")
+    gcnt = (gstart[:, 1:] - gstart[:, :-1]).long()
+    # The work sum_w 2^(16 w) sum_b b * S_b needs on this data, counted from
+    # the digits: a point into an empty bucket is a copy, each later one a
+    # mixed addition; the side list (|e| = 2^15) is bucket 2^15; per window a
+    # running sum from the highest occupied bucket down, run += S_b over the
+    # occupied buckets and total += run at every bucket below the top, the
+    # first of each a copy; then Horner's 16 doublings and one addition per
+    # window below the top.
+    nb = 1 << msm_sorted.BUCKET_BITS
+    digits = msm_sorted._recode_signed(canon, 16).abs().long()
+    per_bucket = torch.zeros((16, nb + 1), dtype=torch.long, device=dev)
+    per_bucket.scatter_add_(1, digits, torch.ones_like(digits))
+    occ = per_bucket[:, 1:] > 0  # buckets 1 .. 2^15
+    accum_mixed = int(per_bucket[:, 1:nb].sum() - occ[:, : nb - 1].sum())
+    side_mixed = int((per_bucket[:, nb] - 1).clamp(min=0).sum())
+    top = (occ * torch.arange(1, nb + 1, device=dev)).amax(-1)
+    fold_adds = int(((occ.sum(-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum())
+    horner_adds, horner_dbls = 15, 15 * 16
+    mul = mont_mul_instrs(pctx.p_int)
+    work = {
+        "msm_sorted_accum": mul * MIXED_ADD_PRODUCTS * accum_mixed,
+        "msm_sorted_fold": mul * (MIXED_ADD_PRODUCTS * side_mixed + FULL_ADD_PRODUCTS * fold_adds),
+        "msm_sorted_horner": mul * (FULL_ADD_PRODUCTS * horner_adds + DOUBLE_PRODUCTS * horner_dbls),
+    }
+    emit({"phase": "msm_sorted", "n": n, "exact": True, "host_checked": True, "msm_host_s": host_s,
+          "nonzero_digits": int(gcnt.sum()), "side_points": int(gcnt[:, msm_sorted.LANES].sum()),
+          "max_lane": int(gcnt[:, : msm_sorted.LANES].max()), "caps": classes,
+          "occupied_buckets": int(occ.sum()), "accum_mixed_adds": accum_mixed,
+          "fold_side_mixed_adds": side_mixed, "fold_adds": fold_adds,
+          "horner_adds": horner_adds, "horner_doublings": horner_dbls,
+          "seconds": time.perf_counter() - t0})
+
+    # the two routes of msm() for one MSM of 2^16 + 1 points, on the same
+    # scalars and bases, each ending in its host readback
+    route_ms = {
+        "sorted": time_ms(lambda: msm_sorted.msm_sorted(canon, bases)),
+        "bucket": time_ms(lambda: msm_bucket.msm_bucket_many(canon[None], bases, mont=False)),
+    }
+    emit({"phase": "msm_routes", "n": n, "ms": route_ms,
+          "bucket_geometry": msm_bucket.msm_geometry(Vesta, n, dev)[:3]})
+
+    inputs = 4 * (entries.numel() + gstart.numel() + 2 * n * 16)
+    timings = {
+        "msm_sorted_accum": (
+            lambda: msm_sorted.msm_sorted_accum(entries, gstart, px, py, cc),
+            lambda: msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, cc),
+            inputs + 4 * bk.numel(), "halo2_tpu/ops/msm_sorted.py:275"),
+        "msm_sorted_fold": (
+            lambda: msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, cc),
+            lambda: msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, cc),
+            4 * (bk.numel() + wk.numel() + gstart.numel() + 32 * int(gcnt[:, msm_sorted.LANES].sum())),
+            "halo2_tpu/ops/msm_sorted.py:433"),
+        "msm_sorted_horner": (
+            lambda: msm_sorted.msm_sorted_horner(wk, cc),
+            lambda: msm_sorted.msm_sorted_horner_plain(wk, cc),
+            4 * (wk.numel() + hk.numel()), "halo2_tpu/ops/msm_sorted.py:497"),
+    }
+    for name, (kfn, pfn, nbytes, replaces) in timings.items():
+        b_ms, b_by = bound(nbytes, work[name])
+        report[name] = dict(
+            route="cuda", source="halo2_tpu_torch/csrc/msm_sorted.cu", replaces=replaces,
+            ms=time_ms(kfn), plain_ms=time_ms(pfn, 1), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, shape=f"n={n} nw=16 W={msm_sorted.LANES} KB={msm_sorted.KB}",
+        )
+        emit({"phase": "time", "kernel": name, **report[name]})
+
     kernels = []
     for name, rec in report.items():
+        on_k16 = name in k16_kernels
         kernels.append({"name": name, "route": rec["route"], "source": rec["source"],
-                        "replaces": rec["replaces"], "launches": launches[name],
+                        "replaces": rec["replaces"],
+                        "launches": (launches16 if on_k16 else launches)[name],
+                        "main_path": "k16" if on_k16 else "k14",
                         "max_abs_err": errs[name], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "shape": rec["shape"], "ms_per_warm_proof": proof_ms[name]})
-    require(sorted(report) == sorted(launches), "every kernel has a report row")
+                        "shape": rec["shape"],
+                        "ms_per_warm_proof": (sorted_proof_ms if on_k16 else proof_ms)[name]})
+    require(sorted(report) == sorted(k14_kernels + k16_kernels), "every kernel has a report row")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -192,6 +192,35 @@ __device__ __forceinline__ Pt pt_add_mixed(const Pt& a, const Fe& X2, const Fe& 
   return r;
 }
 
+// Complete doubling, RCB15 algorithm 9 (a = 0); the same operation
+// sequence as pdouble in ops/curve.py.
+__device__ __forceinline__ Pt pt_double(const Pt& a, const FieldConsts& k) {
+  Fe b3 = fe_from(k.b3);
+  Fe t0 = fe_mul(a.y, a.y, k);
+  Fe Z3 = fe_add(t0, t0, k);
+  Z3 = fe_add(Z3, Z3, k);
+  Z3 = fe_add(Z3, Z3, k);
+  Fe t1 = fe_mul(a.y, a.z, k);
+  Fe t2 = fe_mul(a.z, a.z, k);
+  t2 = fe_mul(b3, t2, k);
+  Fe X3 = fe_mul(t2, Z3, k);
+  Fe Y3 = fe_add(t0, t2, k);
+  Z3 = fe_mul(t1, Z3, k);
+  t1 = fe_add(t2, t2, k);
+  t2 = fe_add(t1, t2, k);
+  t0 = fe_sub(t0, t2, k);
+  Y3 = fe_mul(t0, Y3, k);
+  Y3 = fe_add(X3, Y3, k);
+  t1 = fe_mul(a.x, a.y, k);
+  X3 = fe_mul(t0, t1, k);
+  X3 = fe_add(X3, X3, k);
+  Pt r;
+  r.x = X3;
+  r.y = Y3;
+  r.z = Z3;
+  return r;
+}
+
 // Complete projective addition, RCB15 algorithm 7 (a = 0); the same
 // operation sequence as _full_padd in msm_pallas.py.
 __device__ __forceinline__ Pt pt_add(const Pt& a, const Pt& b, const FieldConsts& k) {

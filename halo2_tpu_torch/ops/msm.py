@@ -1,13 +1,19 @@
-"""Multi-scalar multiplication: host Pippenger (spec) + the bucket MSM.
+"""Multi-scalar multiplication: host Pippenger (spec), the bucket MSM and
+the sorted-bucket MSM.
 
 Counterpart of `halo2_tpu/ops/msm.py`. `msm_host` is the reference's
 `best_multiexp` bucket method over Python bigints (`arithmetic.rs:41-198`),
-used for small MSMs and as the oracle. `msm` sends MSMs of 2^12 points and
-more to the bucket pipeline (`ops/msm_bucket.py`) on the bases' device.
+used for small MSMs and as the oracle. `msm` routes as the JAX package does
+(`halo2_tpu/ops/msm.py:309-330`): below 2^12 points to the host; from 2^16
+points, when the largest scalar is at least 2^128, to the sorted-bucket MSM
+(`ops/msm_sorted.py`), and on its BucketOverflow, or otherwise, to the
+bucket pipeline (`ops/msm_bucket.py`), on the bases' device. `ROUTES` counts
+per call site how often an MSM of 2^16 points or more took each way.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Sequence, Type
 
 import torch
@@ -17,6 +23,11 @@ from .curve import CurveCtx
 from .field import ints_to_limbs
 
 DEVICE_MSM_MIN = 1 << 12
+SORTED_MSM_MIN = 1 << 16
+# (call site, "sorted" | "overflow" | "small_scalars") -> count. "overflow"
+# MSMs went to the sorted MSM first and then to the bucket MSM;
+# "small_scalars" ones failed the host pre-check (largest scalar < 2^128).
+ROUTES: Counter = Counter()
 
 
 def msm_host(scalars: Sequence[int], points: Sequence[Point], curve: Type[Curve]) -> Point:
@@ -63,6 +74,23 @@ class MSMBases:
         self.host_points = list(points)
         self.device = torch.device(device)
         self._tables: dict = {}
+        self._rows: dict = {}
+
+    def device_rows(self, device=None):
+        """Row-major (n, 16) affine Montgomery tables of x and y for the
+        sorted MSM's gather, cached per device. Raises ValueError for an
+        identity base."""
+        device = torch.device(device) if device is not None else self.device
+        if device not in self._rows:
+            p, r = self.curve.p(), self.cc.fctx.r_int
+            if any(pt.is_identity() for pt in self.host_points):
+                raise ValueError("sorted MSM bases must be affine (identity given)")
+            self._rows[device] = tuple(
+                torch.as_tensor(ints_to_limbs([pt.xy[i] * r % p for pt in self.host_points]),
+                                device=device)
+                for i in (0, 1)
+            )
+        return self._rows[device]
 
     def device_tables(self, n_pad: int, device=None):
         """Transposed (16, n_pad) coordinate tables, cached per padded size."""
@@ -76,15 +104,15 @@ class MSMBases:
 
 
 def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
-        device=None) -> Point:
-    """Dispatching MSM: host Pippenger below 2^12 points, else the bucket
-    MSM on `bases.device`, or on `device` for a list of host points, which
-    then must be given.
+        device=None, site: str = "msm") -> Point:
+    """Dispatching MSM on `bases.device`, or on `device` for a list of host
+    points, which then must be given; `site` names the caller in ROUTES.
 
     Terms whose base is the identity add nothing and are dropped before the
-    bucket MSM, whose bases must be affine."""
+    device MSMs, whose bases must be affine."""
     from ..utils.measure import span
     from .msm_bucket import msm_bucket_many
+    from .msm_sorted import BucketOverflow, msm_sorted
 
     if isinstance(bases, MSMBases):
         curve = bases.curve
@@ -107,5 +135,18 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
                 host_points = [host_points[i] for i in keep]
             bases = MSMBases(curve, host_points, device)
         q = curve.SCALAR.MODULUS
-        canon = torch.as_tensor(ints_to_limbs([int(s) % q for s in scalars]), device=device)
+        ints = [int(s) % q for s in scalars]
+        canon = torch.as_tensor(ints_to_limbs(ints), device=device)
+        if n >= SORTED_MSM_MIN:
+            # small or structured scalars (selector and constant columns) put
+            # their digits in few lanes and would overflow the sorted MSM
+            if max(ints, default=0) < 1 << 128:
+                ROUTES[site, "small_scalars"] += 1
+            else:
+                try:
+                    pt = msm_sorted(canon, bases)
+                    ROUTES[site, "sorted"] += 1
+                    return pt
+                except BucketOverflow:
+                    ROUTES[site, "overflow"] += 1
         return msm_bucket_many(canon[None], bases, mont=False)[0]

@@ -1,0 +1,416 @@
+"""Sorted-bucket MSM: signed 16-bit windows, points sorted by bucket: kernels 5-7.
+
+Counterpart of `halo2_tpu/ops/msm_sorted.py`, Pippenger's bucket method
+(`halo2_proofs/src/arithmetic.rs:41-198`) for one MSM of n >= 2^16 points:
+
+* **c = 16 signed windows = the scalar's own limbs.** Balanced recoding maps
+  limb w to a digit e_w in [-2^15, 2^15] with a carry into the next limb;
+  the bucket is |e_w| and the sign negates the point's y.
+* **Pre-stage** (`prestage`, torch sort and gather; XLA code in the JAX
+  package, not a Pallas kernel): per window, the points are sorted by lane
+  (lane l owns the KB = 32 buckets [KB l, KB l + KB), W = 1024 lanes), zero
+  digits sort past the side lane and are discarded, and |e| = 2^15 forms a
+  side list. Lane counts above the Poisson capacities of `_cap_classes`, or a
+  side list above SIDE_CAP, set the overflow flag: the same MSMs overflow as
+  in the JAX package, and `ops/msm.py` sends them to the unsorted bucket MSM.
+* Three stages, each a hand-written CUDA kernel (`csrc/msm_sorted.cu`) with
+  its plain torch version beside it:
+  1. `msm_sorted_accum` (replaces `_accum_fn`): each (window, lane) adds its
+     sorted points into its KB buckets with the complete mixed addition.
+  2. `msm_sorted_fold` (replaces `_fold_fn`): per window sum_b b * S_b over
+     the 2^15 buckets by 32-way lane-suffix scans on three levels (buckets of
+     a lane, lanes of a group, groups of a window), plus 2^15 * side sum.
+  3. `msm_sorted_horner` (replaces `_horner_fn`): sum_w 2^(16 w) * win_w.
+
+Every addition follows one skip rule (an identity operand is not added; a
+point added into an empty bucket is copied), in the same order in the kernels
+and the plain versions, so both give the same projective coordinates and the
+plain versions do work only for the buckets that hold points. The MSM reads
+back once: the result's coordinates and the overflow flag together.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain version
+for CPU tensors. No PyTorch call computes a bucket MSM.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..curves import Point
+from . import _build
+from .curve import CurveCtx, PointVec, padd, padd_mixed, pdouble
+from .field import NLIMBS, from_mont, ints_to_limbs, limbs_to_ints, sub_mod
+
+BUCKET_BITS = 15  # buckets by |e|, e in [-2^15, 2^15]
+SIDE_CAP = 128  # slots for |e| = 2^15 points per window
+LANES = 1024  # W: lanes per window
+KB = (1 << BUCKET_BITS) // LANES  # buckets per lane, 32
+GROUP = 32  # children per fold level: KB = LANES / GROUP = GROUP = 32
+KEY_BITS = 21  # the sort key is lane << 21 | index
+LAUNCHES = {"msm_sorted_accum": 0, "msm_sorted_fold": 0, "msm_sorted_horner": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIG = {
+    "msm_sorted_accum": (_P, _P, _P, _P, _P, _I, _L, _P, _P),
+    "msm_sorted_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _P, _P),
+    "msm_sorted_horner": (_P, _P, _I, _P, _P),
+}
+
+
+class BucketOverflow(RuntimeError):
+    """A lane or side list over capacity (structured scalars), a 17-window
+    curve, more than 2^21 points or an identity base: the caller takes the
+    unsorted bucket MSM."""
+
+
+def _cap_for(n: int, w: int) -> int:
+    lam = max(1.0, n / float(w))
+    return int(math.ceil((lam + 6.0 * math.sqrt(lam) + 8.0) / 8.0)) * 8
+
+
+def _num_windows(q: int) -> int:
+    # the top recoded digit fits window 15 iff (q-1)'s top limb + carry
+    # stays below 2^15 (true for Pasta; secp256k1 needs 17)
+    return 16 if ((q - 1) >> 240) + 1 < (1 << 15) else 17
+
+
+def _cap_classes(n: int, w_lanes: int, kb: int, q: int):
+    """Windows grouped by lane capacity, [(first_window, n_windows, cap), ...].
+
+    Digits of windows 0..14 are uniform over [-2^15, 2^15], so a lane holds
+    Poisson(n / W) points; the top window's digit is bounded by q's top limb
+    (0x4000 for Pasta), which puts its points on the first R_top buckets, so
+    its capacity scales by 2^15 / R_top."""
+    nw = _num_windows(q)
+    cap_uni = _cap_for(n, w_lanes)
+    r_top = ((q - 1) >> 240) + 2  # top recoded digit range incl. carry
+    lam_top = max(1.0, n * kb / float(r_top))
+    cap_top = int(math.ceil((lam_top + 6.0 * math.sqrt(lam_top) + 8.0) / 8.0)) * 8
+    assert nw == 16, "17-window curves take the unsorted kernel"
+    return ((0, 15, cap_uni), (15, 1, cap_top))
+
+
+# ---------------- pre-stage: recode, sort by lane ----------------
+
+
+def _recode_signed(limbs: torch.Tensor, nw: int) -> torch.Tensor:
+    """(n, 16) canonical limbs -> (nw, n) int32 balanced digits."""
+    carry = torch.zeros(limbs.shape[0], dtype=torch.int32, device=limbs.device)
+    es = []
+    for w in range(16):
+        t = limbs[:, w].to(torch.int32) + carry
+        big = t >= (1 << 15)
+        es.append(torch.where(big, t - (1 << 16), t))
+        carry = big.to(torch.int32)
+    if nw > 16:
+        es.append(carry)
+    return torch.stack(es[:nw])
+
+
+def prestage(canon: torch.Tensor, nw: int, classes) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, 16) canonical scalar limbs -> entries (nw, n) int32, the points of
+    each window sorted by lane as src << 6 | (e < 0) << 5 | |e| mod KB;
+    gstart (nw, W + 2) int32, the first sorted position of each lane, the
+    side list at [W, W + 1); and the 0-d overflow flag. torch has no uint32
+    sort, so the key (lane << 21 | index) is int64."""
+    n = canon.shape[0]
+    dev = canon.device
+    e = _recode_signed(canon, nw).long()
+    bucket = e.abs()
+    # zero digits sort to a discard lane past the side lane: real columns are
+    # often mostly zeros and would overflow lane 0, but add nothing
+    lane = torch.where(bucket == 0, LANES + 1, bucket // KB)
+    key = torch.sort((lane << KEY_BITS) | torch.arange(n, device=dev), dim=1).values
+    order = key & ((1 << KEY_BITS) - 1)
+    queries = torch.arange(LANES + 2, device=dev).expand(nw, LANES + 2).contiguous()
+    gstart = torch.searchsorted((key >> KEY_BITS).contiguous(), queries)
+    gcnt = gstart[:, 1 : LANES + 1] - gstart[:, :LANES]
+    side_cnt = gstart[:, LANES + 1] - gstart[:, LANES]
+    caps = torch.as_tensor([cap for (_, cnt, cap) in classes for _ in range(cnt)], device=dev)
+    overflow = ((gcnt.amax(1) > caps) | (side_cnt > SIDE_CAP)).any()
+    es = torch.gather(e, 1, order)
+    entries = (order << 6) | ((es < 0).long() << 5) | (es.abs() % KB)
+    return entries.to(torch.int32), gstart.to(torch.int32), overflow
+
+
+# ---------------- the skip rule, plain ----------------
+
+
+_zero_cache: dict = {}
+
+
+def _zero_reps(cc: CurveCtx, device) -> torch.Tensor:
+    """Limbs of the multiples of p below 2^256: the lazy forms of 0."""
+    key = (cc.fctx.p_int, torch.device(device))
+    if key not in _zero_cache:
+        p = cc.fctx.p_int
+        _zero_cache[key] = torch.as_tensor(
+            ints_to_limbs([k * p for k in range(4) if k * p < 1 << 256]), device=device)
+    return _zero_cache[key]
+
+
+def _is_identity(z: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
+    return (z.unsqueeze(-2) == _zero_reps(cc, z.device)).all(-1).any(-1)
+
+
+def _pick(pv: PointVec, idx) -> PointVec:
+    return PointVec(*(t[idx] for t in pv))
+
+
+def _put(pv: PointVec, idx, val: PointVec) -> None:
+    for t, v in zip(pv, val):
+        t[idx] = v
+
+
+def add_skip(a: PointVec, b: PointVec, cc: CurveCtx) -> PointVec:
+    """b the identity -> a; a the identity -> b; else the complete a + b."""
+    ia, ib = _is_identity(a.z, cc), _is_identity(b.z, cc)
+    out = PointVec(*(torch.where(ib[..., None], x, y) for x, y in zip(a, b)))
+    idx = (~(ia | ib)).nonzero(as_tuple=True)
+    if idx[0].numel():
+        _put(out, idx, padd(_pick(a, idx), _pick(b, idx), cc))
+    return out
+
+
+def dbl_skip(a: PointVec, cc: CurveCtx) -> PointVec:
+    out = PointVec(*(t.clone() for t in a))
+    idx = (~_is_identity(a.z, cc)).nonzero(as_tuple=True)
+    if idx[0].numel():
+        _put(out, idx, pdouble(_pick(a, idx), cc))
+    return out
+
+
+def add_affine_skip(a: PointVec, x: torch.Tensor, y: torch.Tensor, cc: CurveCtx) -> PointVec:
+    """Affine (x, y) into a; copied with Z = 1 where a is the identity."""
+    ia = _is_identity(a.z, cc)
+    one = cc.fctx.one(x.device).expand_as(x)
+    out = PointVec(x.clone(), y.clone(), one.clone())
+    idx = (~ia).nonzero(as_tuple=True)
+    if idx[0].numel():
+        _put(out, idx, padd_mixed(_pick(a, idx), x[idx], y[idx], cc))
+    return out
+
+
+def _base(px: torch.Tensor, py: torch.Tensor, src: torch.Tensor, neg: torch.Tensor, cc: CurveCtx):
+    x = px[src]
+    y = py[src]
+    return x, torch.where(neg.bool()[:, None], sub_mod(torch.zeros_like(y), y, cc.fctx), y)
+
+
+def _points(t: torch.Tensor) -> PointVec:
+    """(..., 3, 16) -> PointVec of (..., 16) views."""
+    return PointVec(t[..., 0, :], t[..., 1, :], t[..., 2, :])
+
+
+def _stack(pv: PointVec) -> torch.Tensor:
+    return torch.stack(list(pv), dim=-2).contiguous()
+
+
+# ---------------- kernel 5: sorted accumulation ----------------
+
+
+def msm_sorted_accum_plain(entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    nw, _ = entries.shape
+    dev = entries.device
+    b = cc.identity_vec((nw * LANES * KB,), dev)
+    start = gstart[:, :LANES].long()
+    cnt = gstart[:, 1 : LANES + 1].long() - start
+    for r in range(int(cnt.max()) if cnt.numel() else 0):
+        w, lane = (cnt > r).nonzero(as_tuple=True)
+        e = entries[w, start[w, lane] + r].long()
+        x, y = _base(px, py, e >> 6, (e >> 5) & 1, cc)
+        flat = (w * LANES + lane) * KB + (e & (KB - 1))
+        _put(b, flat, add_affine_skip(_pick(b, flat), x, y, cc))
+    return _stack(b).reshape(nw, LANES, KB, 3, NLIMBS)
+
+
+def msm_sorted_accum(entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    """entries (nw, n), gstart (nw, W + 2) from `prestage`; px/py (rows >= n,
+    16) affine Montgomery bases -> buckets (nw, W, KB, 3, 16)."""
+    if not _build.on_card(entries, "msm_sorted_accum"):
+        return msm_sorted_accum_plain(entries, gstart, px, py, cc)
+    nw, n = entries.shape
+    dev = entries.device
+    _check_inputs(entries, gstart, px, py)
+    out = torch.empty((nw, LANES, KB, 3, NLIMBS), dtype=torch.int32, device=dev)
+    lib = _build.load("msm_sorted", _SIG)
+    err = lib.msm_sorted_accum(entries.data_ptr(), gstart.data_ptr(), px.data_ptr(), py.data_ptr(),
+                               out.data_ptr(), nw, n, ctypes.byref(_consts(cc)),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "msm_sorted_accum")
+    LAUNCHES["msm_sorted_accum"] += 1
+    return out
+
+
+def _consts(cc: CurveCtx):
+    return _build.field_consts(cc.fctx.p_int, cc.b3_mont)
+
+
+def _check_inputs(entries, gstart, px, py) -> None:
+    nw, n = entries.shape
+    dev = entries.device
+    _build.check_tensor(entries, (nw, n), "entries", dev)
+    _build.check_tensor(gstart, (nw, LANES + 2), "gstart", dev)
+    _build.check_tensor(px, (px.shape[0], NLIMBS), "px", dev)
+    _build.check_tensor(py, tuple(px.shape), "py", dev)
+    if px.shape[0] < n:
+        raise ValueError(f"msm_sorted: {n} scalars but {px.shape[0]} bases")
+
+
+# ---------------- kernel 6: fold ----------------
+
+
+def _combine_plain(P: PointVec, T: Optional[PointVec], log_s: int, cc: CurveCtx):
+    """(G, 32) children -> (sum_j P_j, 2^log_s * sum_j j * P_j + sum_j T_j),
+    each (G,); T None is the identity. Groups with no point keep child 0 as
+    their sum and the identity as their weighted sum, as the kernel does."""
+    G = P.x.shape[0]
+    dev = P.x.device
+    occ = ~_is_identity(P.z, cc).all(1)
+    if T is not None:
+        occ |= ~_is_identity(T.z, cc).all(1)
+    out_p = PointVec(*(t[:, 0].clone() for t in P))
+    out_t = cc.identity_vec((G,), dev)
+    g = occ.nonzero(as_tuple=True)[0]
+    if not g.numel():
+        return out_p, out_t
+    x = _pick(P, g)  # (m, 32)
+    for d in (1, 2, 4, 8, 16):  # suffix scan
+        head = add_skip(PointVec(*(t[:, : GROUP - d] for t in x)),
+                        PointVec(*(t[:, d:] for t in x)), cc)
+        x = PointVec(*(torch.cat([h, t[:, GROUP - d :]], 1) for h, t in zip(head, x)))
+    m = g.numel()
+    v = PointVec(*(torch.cat([i, t[:, 1:]], 1) for i, t in zip(cc.identity_vec((m, 1), dev), x)))
+    tc = _pick(T, g) if T is not None else cc.identity_vec((m, GROUP), dev)
+    both = PointVec(*(torch.stack([a, b]) for a, b in zip(v, tc)))  # (2, m, 32)
+    for d in (16, 8, 4, 2, 1):  # both trees at once
+        head = add_skip(PointVec(*(t[:, :, :d] for t in both)),
+                        PointVec(*(t[:, :, d : 2 * d] for t in both)), cc)
+        both = PointVec(*(torch.cat([h, t[:, :, d:]], 2) for h, t in zip(head, both)))
+    vs = PointVec(*(t[0, :, 0] for t in both))
+    for _ in range(log_s):
+        vs = dbl_skip(vs, cc)
+    _put(out_p, g, PointVec(*(t[:, 0] for t in x)))
+    _put(out_t, g, add_skip(vs, PointVec(*(t[1, :, 0] for t in both)), cc))
+    return out_p, out_t
+
+
+def _groups(pv: PointVec) -> PointVec:
+    return PointVec(*(t.reshape(-1, GROUP, NLIMBS) for t in pv))
+
+
+def msm_sorted_fold_plain(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    nw = buckets.shape[0]
+    dev = buckets.device
+    p1, t1 = _combine_plain(_points(buckets.reshape(nw * LANES, KB, 3, NLIMBS)), None, 0, cc)
+    p2, t2 = _combine_plain(_groups(p1), _groups(t1), 5, cc)
+    _, t3 = _combine_plain(_groups(p2), _groups(t2), 10, cc)
+    # side list: slot i on thread i mod 32, in slot order, then a tree
+    beg = gstart[:, LANES].long()
+    cnt = (gstart[:, LANES + 1].long() - beg).clamp(max=SIDE_CAP)
+    acc = cc.identity_vec((nw, GROUP), dev)
+    for i0 in range(0, SIDE_CAP, GROUP):
+        w, j = (i0 + torch.arange(GROUP, device=dev)[None, :] < cnt[:, None]).nonzero(as_tuple=True)
+        if not w.numel():
+            break
+        e = entries[w, beg[w] + i0 + j].long()
+        x, y = _base(px, py, e >> 6, torch.ones_like(e), cc)
+        _put(acc, (w, j), add_affine_skip(_pick(acc, (w, j)), x, y, cc))
+    for d in (16, 8, 4, 2, 1):
+        head = add_skip(PointVec(*(t[:, :d] for t in acc)), PointVec(*(t[:, d : 2 * d] for t in acc)), cc)
+        acc = PointVec(*(torch.cat([h, t[:, d:]], 1) for h, t in zip(head, acc)))
+    side = PointVec(*(t[:, 0] for t in acc))
+    for _ in range(BUCKET_BITS):
+        side = dbl_skip(side, cc)
+    return _stack(add_skip(t3, side, cc))  # (nw, 3, 16)
+
+
+def msm_sorted_fold(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    """buckets (nw, W, KB, 3, 16) + the side lists -> window sums (nw, 3, 16):
+    sum_b b * S_b + 2^15 * (side sum, y negated)."""
+    if not _build.on_card(buckets, "msm_sorted_fold"):
+        return msm_sorted_fold_plain(buckets, entries, gstart, px, py, cc)
+    nw, n = entries.shape
+    dev = buckets.device
+    _check_inputs(entries, gstart, px, py)
+    _build.check_tensor(buckets, (nw, LANES, KB, 3, NLIMBS), "buckets", dev)
+    scratch = torch.empty((nw * (LANES + GROUP + 1) * 2, 3, NLIMBS), dtype=torch.int32, device=dev)
+    out = torch.empty((nw, 3, NLIMBS), dtype=torch.int32, device=dev)
+    lib = _build.load("msm_sorted", _SIG)
+    err = lib.msm_sorted_fold(buckets.data_ptr(), entries.data_ptr(), gstart.data_ptr(),
+                              px.data_ptr(), py.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                              nw, n, ctypes.byref(_consts(cc)),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "msm_sorted_fold")
+    LAUNCHES["msm_sorted_fold"] += 1
+    return out
+
+
+# ---------------- kernel 7: Horner over windows ----------------
+
+
+def msm_sorted_horner_plain(wins: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
+    nw = wins.shape[0]
+    acc = _points(wins[nw - 1 : nw])
+    for w in range(nw - 2, -1, -1):
+        for _ in range(16):
+            acc = dbl_skip(acc, cc)
+        acc = add_skip(acc, _points(wins[w : w + 1]), cc)
+    return _stack(acc)[0]
+
+
+def msm_sorted_horner(wins: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
+    """wins (nw, 3, 16) -> sum_w 2^(16 w) * wins_w, (3, 16)."""
+    if not _build.on_card(wins, "msm_sorted_horner"):
+        return msm_sorted_horner_plain(wins, cc)
+    nw = wins.shape[0]
+    _build.check_tensor(wins, (nw, 3, NLIMBS), "wins", wins.device)
+    out = torch.empty((3, NLIMBS), dtype=torch.int32, device=wins.device)
+    lib = _build.load("msm_sorted", _SIG)
+    err = lib.msm_sorted_horner(wins.data_ptr(), out.data_ptr(), nw, ctypes.byref(_consts(cc)),
+                                torch.cuda.current_stream(wins.device).cuda_stream)
+    _build.check(err, "msm_sorted_horner")
+    LAUNCHES["msm_sorted_horner"] += 1
+    return out
+
+
+# ---------------- the MSM ----------------
+
+
+def msm_sorted(canon: torch.Tensor, bases) -> Point:
+    """One MSM: (n, 16) canonical scalar limbs x `bases` (an ops.msm.MSMBases)
+    -> host Point. Raises BucketOverflow where the JAX package does; the
+    overflow flag comes back with the result in one readback."""
+    curve = bases.curve
+    q = curve.SCALAR.MODULUS
+    n = canon.shape[0]
+    nw = _num_windows(q)
+    if nw != 16:
+        raise BucketOverflow("17-window curve: the unsorted kernel handles it")
+    if n > 1 << KEY_BITS:
+        raise BucketOverflow(f"n={n} exceeds the 2^21 points the sort key holds")
+    try:
+        px, py = bases.device_rows(canon.device)
+    except ValueError as e:  # an identity base: the kernels need affine points
+        raise BucketOverflow(str(e)) from e
+    entries, gstart, overflow = prestage(canon, nw, _cap_classes(n, LANES, KB, q))
+    cc = bases.cc
+    buckets = msm_sorted_accum(entries, gstart, px, py, cc)
+    wins = msm_sorted_fold(buckets, entries, gstart, px, py, cc)
+    total = msm_sorted_horner(wins, cc)
+    host = torch.cat([from_mont(total, cc.fctx).reshape(-1),
+                      overflow.to(torch.int32).reshape(1)]).cpu()
+    if int(host[-1]):
+        raise BucketOverflow("bucket capacity exceeded (structured scalars)")
+    X, Y, Z = limbs_to_ints(host[:-1].reshape(3, NLIMBS))
+    if Z == 0:
+        return Point(curve, None)
+    p = curve.p()
+    zinv = pow(Z, -1, p)
+    return Point(curve, (X * zinv % p, Y * zinv % p))

@@ -19,6 +19,7 @@ from ..ops.polyeval import horner_fold_mont
 from ..poly import COEFF, FVec, Polynomial, eval_polynomial_host
 from ..poly.commitment import Blind, ProverQuery, VerifierQuery
 from ..utils.chacha import ChaCha20Rng
+from ..utils.measure import span
 
 
 @dataclass
@@ -48,7 +49,8 @@ def commit_random(params, domain, rng, transcript) -> Committed:
     n = params.n
     seed = rng.fill_bytes(32) if hasattr(rng, "fill_bytes") else bytes(32)
     sub = ChaCha20Rng(seed)
-    rand_vec = [F.random(sub).v for _ in range(n)]
+    with span("vanishing: random draw"):
+        rand_vec = [F.random(sub).v for _ in range(n)]
     random_blind = Blind(F.random(rng).v)
     c = params.commit(rand_vec, random_blind)
     transcript.write_point(c)

@@ -3,8 +3,9 @@
 Counterpart of `halo2_tpu/poly/ipa/__init__.py` (reference
 `halo2_proofs/src/poly/ipa/`): `ParamsIPA` {g, g_lagrange, w, u} read from
 the same `.params_cache/ipa-<curve>-k<k>.raw` files, batched commitments
-through the bucket MSM, the k-round opening argument, the x1..x4 multiopen
-protocol, `MSMIPA` and `GuardIPA`.
+through the bucket MSM (single ones of 2^16 points and more through the
+sorted-bucket MSM, as `ops/msm.py` routes them), the k-round opening
+argument, the x1..x4 multiopen protocol, `MSMIPA` and `GuardIPA`.
 
 The params own a device: `ParamsIPA.cached(curve, k)` puts them on CUDA
 and raises if CUDA is not available, unless the caller passes
@@ -122,11 +123,11 @@ class ParamsIPA:
     # -- commitments --
     def commit_lagrange(self, values: Sequence[int], blind: Blind) -> Point:
         scalars = list(values) + [blind.value % self.curve.SCALAR.MODULUS]
-        return msm(scalars, self._bases_lagrange, self.curve)
+        return msm(scalars, self._bases_lagrange, self.curve, site="commit_lagrange")
 
     def commit(self, coeffs: Sequence[int], blind: Blind) -> Point:
         scalars = list(coeffs) + [blind.value % self.curve.SCALAR.MODULUS]
-        return msm(scalars, self._bases_g, self.curve)
+        return msm(scalars, self._bases_g, self.curve, site="commit")
 
     def commit_many(self, stacks, blinds: Sequence[Blind], lagrange: bool,
                     mont: bool = True) -> List[Point]:
@@ -267,7 +268,8 @@ class MSMIPA:
         if self.g_scalars is not None:
             scalars.extend(self.g_scalars)
             points.extend(self.params.g)
-        return msm(scalars, points, self.params.curve, device=self.params.device)
+        return msm(scalars, points, self.params.curve, device=self.params.device,
+                   site="MSMIPA.eval")
 
     def check(self) -> bool:
         return self.eval().is_identity()
@@ -336,8 +338,9 @@ def ipa_commit_open(params: ParamsIPA, rng, transcript, p_poly, p_blind: Blind, 
     dev = params.device
     ctx = FieldCtx(F)
 
-    s_poly = [F.random(rng).v for _ in range(n)]
-    s_poly_blind = F.random(rng).v
+    with span("ipa: s-poly draw"):
+        s_poly = [F.random(rng).v for _ in range(n)]
+        s_poly_blind = F.random(rng).v
 
     with span("ipa: s-poly commit"):
         spm = ctx.consts(s_poly, dev)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from halo2_tpu_torch.curves import Vesta
-from halo2_tpu_torch.ops import msm_bucket
+from halo2_tpu_torch.ops import msm_bucket, msm_sorted
 from halo2_tpu_torch.ops.curve import CurveCtx
 from halo2_tpu_torch.poly.ipa import ParamsIPA, resolve_device
 
@@ -25,6 +25,7 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = ["halo2_tpu_torch"] + _port_modules()
+    assert "halo2_tpu_torch.ops.msm_sorted" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,3 +80,18 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         msm_bucket.msm_lane_reduce(torch.empty((1, 3, 16, 8), dtype=torch.int32, device="meta"), cc)
 
+
+
+def test_sorted_msm_wrappers_refuse_other_devices():
+    cc = CurveCtx(Vesta)
+    entries = torch.empty((16, 8), dtype=torch.int32, device="meta")
+    gstart = torch.empty((16, msm_sorted.LANES + 2), dtype=torch.int32, device="meta")
+    rows = torch.empty((8, 16), dtype=torch.int32, device="meta")
+    buckets = torch.empty((16, msm_sorted.LANES, msm_sorted.KB, 3, 16), dtype=torch.int32,
+                          device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        msm_sorted.msm_sorted_accum(entries, gstart, rows, rows, cc)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msm_sorted.msm_sorted_fold(buckets, entries, gstart, rows, rows, cc)
+    with pytest.raises(ValueError, match="unsupported device"):
+        msm_sorted.msm_sorted_horner(torch.empty((16, 3, 16), dtype=torch.int32, device="meta"), cc)
