@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
+Builds the ten CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
 main path's shapes and times both, reproduces the golden proof bytes of
-MulCircuit (k = 4), and drives two paths, each with the kernels' launch
+MulCircuit (k = 4), and drives four paths, each with the kernels' launch
 counters set to 0 just before it and read just after:
 
 * k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
@@ -23,6 +23,18 @@ counters set to 0 just before it and read just after:
   commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
   their plain versions and msm_host at n = 2^16 + 1, and the sorted and the
   bucket MSM are timed on the same 2^16 + 1 scalars and bases.
+* NTT=pallas: the k = 14 path again with every basis change on the
+  mixed-radix plan (kernel 8, none of kernel 1), which must give the pinned
+  VK and the proof bytes of the default route; then BenchCircuit at k = 10
+  proved under NTT=pallas and NTT=mxu (bf16 Toeplitz products on the tensor
+  cores), each to the JAX package's bytes. Before the paths, kernel 8 is
+  held against its plain version at every level of the 2^14, 2^16 and 2^18
+  plans on Fp (2^18 has a second factor of 1024) and 2^14 on FrBn, and the
+  Toeplitz plan at 2^14 in both MXU_DTYPEs against its int64 version.
+* the profiling tool: `halo2_tpu_torch.tools.profile_kernels.tilemul` over
+  2^18 elements, which runs kernels 9 and 10 (eight chained Montgomery
+  products per element; one mixed addition per point); both are then held
+  against their plain versions on the tool's inputs.
 
 Every phase prints one JSON line; any failure raises and exits non-zero. The
 last line is
@@ -41,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -126,15 +139,35 @@ def require(cond: bool, what: str):
         raise AssertionError(what)
 
 
+@contextmanager
+def environ(**values):
+    """Set (or, for None, unset) environment variables, and restore them on
+    the way out, also when the block raises."""
+    saved = {name: os.environ.get(name) for name in values}
+    try:
+        for name, v in values.items():
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+        yield
+    finally:
+        for name, v in saved.items():
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from halo2_tpu_torch.circuits import MulCircuit, bench_circuit_for_k
-    from halo2_tpu_torch.curves import Vesta
-    from halo2_tpu_torch.fields import Fp
-    from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, ntt_cg
+    from halo2_tpu_torch.curves import Pallas, Vesta
+    from halo2_tpu_torch.fields import Fp, FrBn
+    from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
     from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont, limbs_to_ints
@@ -146,6 +179,7 @@ def main() -> int:
     from halo2_tpu_torch.plonk.verifier import verify_proof
     from halo2_tpu_torch.poly.commitment import Blind
     from halo2_tpu_torch.poly.ipa import ParamsIPA
+    from halo2_tpu_torch.tools import profile_kernels
     from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite, TranscriptError
     from halo2_tpu_torch.utils.chacha import ChaCha20Rng
     from halo2_tpu_torch.utils.measure import get_records, reset_records
@@ -168,10 +202,11 @@ def main() -> int:
     sctx = FieldCtx(Fp)
     q = Fp.MODULUS
 
-    def rand_canon(shape):
-        """Uniform field elements < q as canonical 16-bit limbs, from the seed."""
+    def rand_canon(shape, top=0x3FFF):
+        """Uniform values below 2^(240 + bits of top) as canonical 16-bit limbs,
+        from the seed: below q for the default top (< 2^254)."""
         limbs = rng.integers(0, 1 << 16, size=shape + (16,), dtype=np.int64)
-        limbs[..., 15] &= 0x3FFF  # < 2^254 < q
+        limbs[..., 15] &= top
         return torch.as_tensor(limbs.astype(np.int32), device=dev)
 
     errs = {}
@@ -182,19 +217,35 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), int(d))
         require(int(d) == 0, what)
 
-    def canon_equal(a, b):
-        return torch.equal(from_mont(a.reshape(-1, 16), sctx), from_mont(b.reshape(-1, 16), sctx))
+    def canon_equal(a, b, ctx=sctx):
+        return torch.equal(from_mont(a.reshape(-1, 16), ctx), from_mont(b.reshape(-1, 16), ctx))
+
+    def level_bound(xl, tab, g):
+        """Bound of one NTT level over the columns of xl (Fp): x read and
+        written once, the twiddle tables read once, and one product per
+        twiddle other than 1 (stage 0's are all 1, and so are inter row 0
+        and the first entry of every inter row)."""
+        cols = xl.shape[0]
+        nbytes = 4 * (xl.numel() * 2 + tab["stw"].numel() + tab["inter"].numel())
+        one = sctx.const(1, dev)
+        stw_prods = int((tab["stw"] != one).any(-1).sum())
+        inter_prods = (tab["inter"] != one).any(-1).sum(-1)
+        prods = cols * stw_prods + int(inter_prods[torch.arange(cols, device=dev) % g].sum())
+        return (*bound(nbytes, mont_mul_instrs(q) * prods), prods)
 
     report = {}
 
+    counters = (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES, ntt_mr.LAUNCHES,
+                tile_bench.LAUNCHES)
+
     def zero_launches():
-        for counts in (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES):
+        for counts in counters:
             for name in counts:
                 counts[name] = 0
         msm_mod.ROUTES.clear()
 
     def read_launches():
-        return {**ntt_cg.LAUNCHES, **msm_bucket.LAUNCHES, **msm_sorted.LAUNCHES}
+        return {name: c for counts in counters for name, c in counts.items()}
 
     def read_routes():
         return {f"{site}:{route}": cnt for (site, route), cnt in sorted(msm_mod.ROUTES.items())}
@@ -204,6 +255,7 @@ def main() -> int:
 
     k14_kernels = [*ntt_cg.LAUNCHES, *msm_bucket.LAUNCHES]
     k16_kernels = list(msm_sorted.LAUNCHES)
+    tool_kernels = list(tile_bench.LAUNCHES)
 
     # ---- kernel 1: constant-geometry NTT level ----
     t0 = time.perf_counter()
@@ -235,15 +287,7 @@ def main() -> int:
             xl = sctx.to_mont(rand_canon((n // f, f)))
             ms = time_ms(lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx))
             plain_ms = time_ms(lambda: ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx), 2)
-            nbytes = 4 * (xl.numel() * 2 + tab["stw"].numel() + tab["inter"].numel())
-            # products by a twiddle other than 1: stage 0's are all 1, and so
-            # is inter row 0 and slot 0 of every inter row
-            one = sctx.const(1, dev)
-            cols = n // f
-            stw_prods = int((tab["stw"] != one).any(-1).sum())
-            inter_prods = (tab["inter"] != one).any(-1).sum(-1)
-            prods = cols * stw_prods + int(inter_prods[torch.arange(cols, device=dev) % g].sum())
-            b_ms, b_by = bound(nbytes, mont_mul_instrs(q) * prods)
+            b_ms, b_by, _ = level_bound(xl, tab, g)
             report["cg_ntt_level"] = dict(
                 route="cuda", source="halo2_tpu_torch/csrc/ntt_cg.cu",
                 replaces="halo2_tpu/ops/ntt_pallas2.py:219",
@@ -252,6 +296,101 @@ def main() -> int:
             )
             emit({"phase": "time", "kernel": "cg_ntt_level", **report["cg_ntt_level"]})
     emit({"phase": "ntt_done", "seconds": time.perf_counter() - t0})
+
+    # ---- kernel 8: mixed-radix NTT level (the NTT=pallas engine) ----
+    t0 = time.perf_counter()
+    for field, log_n in ((Fp, 14), (Fp, 16), (Fp, 18), (FrBn, 14)):
+        fctx = FieldCtx(field)
+        p = field.MODULUS
+        n = 1 << log_n
+        omega = pow(field.ROOT_OF_UNITY, 1 << (field.S - log_n), p)
+        top = 0x3FFF if field is Fp else 0x1FFF  # below p
+        x = fctx.to_mont(rand_canon((n,), top))
+        fwd = ntt_mr.MrNttPlan(field, log_n, omega)
+        inv = ntt_mr.MrNttPlan(field, log_n, pow(omega, -1, p))
+        # every level of both plans: kernel == plain on the same inputs
+        for plan in (fwd, inv):
+            for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables(dev))):
+                xl = fctx.to_mont(rand_canon((n // lv["f"], lv["f"]), top))
+                yk = ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], fctx)
+                yp = ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], fctx)
+                same("mr_col_ntt", yk, yp, fctx,
+                     f"mr_col_ntt {field.__name__} 2^{log_n} level {li}: kernel != plain")
+        y = fwd(x)
+        cg = ntt_cg.CgNttPlan(field, log_n, omega)
+        require(canon_equal(y, NttPlan(field, log_n, omega)(x), fctx),
+                f"mixed-radix NTT {field.__name__} 2^{log_n} != radix-2 reference")
+        require(canon_equal(y, cg(x), fctx),
+                f"mixed-radix NTT {field.__name__} 2^{log_n} != constant-geometry NTT")
+        back = fctx.mul(inv(y), fctx.const(pow(n, -1, p), dev))
+        require(canon_equal(back, x, fctx), f"inverse mixed-radix NTT 2^{log_n} does not invert")
+        emit({"phase": "ntt_mr", "field": field.__name__, "log_n": log_n, "exact": True,
+              "levels": [(lv["f"], lv["g"]) for lv in fwd.levels],
+              "full_transform_ms": time_ms(lambda: fwd(x)), "cg_full_transform_ms": time_ms(lambda: cg(x))})
+        if field is Fp and log_n == 16:
+            lv, tab = fwd.levels[0], fwd._tables(dev)[0]
+            f, g = lv["f"], lv["g"]
+            cols = n // f
+            xl = sctx.to_mont(rand_canon((cols, f)))
+            ms = time_ms(lambda: ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx))
+            plain_ms = time_ms(lambda: ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], sctx), 2)
+            b_ms, b_by, prods = level_bound(xl, tab, g)
+            report["mr_col_ntt"] = dict(
+                route="cuda", source="halo2_tpu_torch/csrc/ntt_mr.cu",
+                replaces="halo2_tpu/ops/ntt_pallas.py:392",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"cols={cols} f={f} g={g} (first level of 2^16)",
+            )
+            emit({"phase": "time", "kernel": "mr_col_ntt", "products": prods, **report["mr_col_ntt"]})
+    emit({"phase": "ntt_mr_done", "seconds": time.perf_counter() - t0})
+
+    # ---- the Toeplitz-product NTT (NTT=mxu) at 2^14, each operand type ----
+    t0 = time.perf_counter()
+    log_n = 14
+    omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - log_n), q)
+    x = sctx.to_mont(rand_canon((1 << log_n,)))
+    mplan = mxu_mont.MxuNttPlan(Fp, log_n, omega)
+    exact = mplan(x.cpu()).to(dev)  # int64 products on the host: the plain version
+    require(canon_equal(exact, NttPlan(Fp, log_n, omega)(x)), "MxuNttPlan int64 != radix-2 reference")
+    mxu_ms = {}
+    for dtype in mxu_mont.DTYPES:
+        with environ(MXU_DTYPE=dtype):
+            require(canon_equal(mplan(x), exact), f"MxuNttPlan {dtype} on the card != int64 version")
+            mxu_ms[dtype] = time_ms(lambda: mplan(x), 3)
+    emit({"phase": "mxu_ntt", "log_n": log_n, "exact": True, "full_transform_ms": mxu_ms,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- the profiling tool's tilemul: kernels 9 and 10 over 2^18 elements ----
+    t0 = time.perf_counter()
+    zero_launches()
+    tiles = profile_kernels.tilemul(1 << 18, device=dev)
+    torch.cuda.synchronize()
+    tile_launches = read_launches()
+    for name in tool_kernels:
+        require(tile_launches[name] > 0, f"kernel {name} was not launched by profile_kernels tilemul")
+    pallas_cc = CurveCtx(Pallas)
+    fctx = pallas_cc.fctx
+    n = tiles["n"]
+    same("tile_mul", tiles["mul_out"], tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), fctx,
+         "tile_mul: kernel != plain")
+    for got, want in zip(tiles["padd_out"], tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc)):
+        same("tile_padd", got, want, fctx, "tile_padd: kernel != plain")
+    mul = mont_mul_instrs(fctx.p_int)
+    for name, plain, nbytes, muls, replaces, per in (
+        ("tile_mul", lambda: tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), 3 * 64 * n,
+         tile_bench.MULS_PER_ELEMENT * n * mul, "tools/profile_kernels.py:61", "ns_per_product"),
+        ("tile_padd", lambda: tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc), 8 * 64 * n,
+         MIXED_ADD_PRODUCTS * n * mul, "tools/profile_kernels.py:92", "ns_per_point"),
+    ):
+        b_ms, b_by = bound(nbytes, muls)
+        report[name] = dict(
+            route="cuda", source="halo2_tpu_torch/csrc/tile_bench.cu", replaces=replaces,
+            ms=tiles["mul_ms" if name == "tile_mul" else "padd_ms"], plain_ms=time_ms(plain, 1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=f"n={n} (Pallas)",
+            **{per: tiles[per]})
+        emit({"phase": "time", "kernel": name, **report[name]})
+    emit({"phase": "profile_tilemul", "n": n, "exact": True, "launches": tile_launches,
+          "seconds": time.perf_counter() - t0})
 
     # ---- kernels 2-4: bucket MSM ----
     t0 = time.perf_counter()
@@ -396,6 +535,7 @@ def main() -> int:
     require(rejected, "k=14 proof with a flipped byte was accepted")
     for name in k14_kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the k=14 path")
+    require(launches["mr_col_ntt"] == 0, "kernel 8 ran on the default (NTT unset) k=14 path")
     emit({"phase": "main_path", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
           "proof_bytes": len(proof), "verified": True, "flipped_byte_rejected": True,
           "stages": stages, "prove_spans": prove_stages, "launches": launches})
@@ -445,6 +585,50 @@ def main() -> int:
           "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / warm_s,
           "kernels_event_ms": proof_ms, "kernels_traced_ms": traced_ms})
 
+    # ---- NTT=pallas: the k = 14 path with every basis change on kernel 8 ----
+    pinned = vk.pinned_repr()
+    zero_launches()
+    mr_log = []
+    with environ(NTT="pallas"):
+        t1 = time.perf_counter()
+        vk_mr = keygen_vk(params, circ.without_witnesses())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pk_mr = keygen_pk(params, vk_mr, circ.without_witnesses())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        before = read_launches()
+        original = ntt_mr.mr_col_ntt
+        ntt_mr.mr_col_ntt = timed("mr_col_ntt", original, mr_log)
+        reset_records()
+        try:
+            t4 = time.perf_counter()
+            tr = Blake2bWrite(Vesta)
+            create_proof(params, pk_mr, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+            proof_mr = tr.finalize()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+        finally:
+            ntt_mr.mr_col_ntt = original
+        mr_spans = get_records()
+        per_proof_mr = diff(read_launches(), before)
+        ok = verify_proof(params, vk_mr, [[]], Blake2bRead(Vesta, proof_mr))
+        t6 = time.perf_counter()
+    launches_mr = read_launches()
+    require(ok is True, "k=14 NTT=pallas verify")
+    require(vk_mr.pinned_repr() == pinned, "k=14 NTT=pallas pinned VK differs from the default route's")
+    require(proof_mr == proof, "k=14 NTT=pallas proof bytes differ from the default route's")
+    require(launches_mr["mr_col_ntt"] > 0 and per_proof_mr["mr_col_ntt"] > 0,
+            "kernel 8 was not launched on the k=14 NTT=pallas path")
+    require(launches_mr["cg_ntt_level"] == 0, "kernel 1 ran on the k=14 NTT=pallas path")
+    mr_proof_ms = sum(start.elapsed_time(end) for _, start, end in mr_log)
+    emit({"phase": "main_path_ntt_pallas", "circuit": "BenchCircuit", "k": k,
+          "same_pinned_vk": True, "same_proof_bytes": True, "verified": True,
+          "stages": dict(keygen_vk_s=t2 - t1, keygen_pk_s=t3 - t2, prove_s=t5 - t4, verify_s=t6 - t5),
+          "default_route_prove_s": {"first": stages["prove_s"], "warm": warm_s},
+          "prove_spans": mr_spans, "launches": launches_mr, "launches_per_proof": per_proof_mr,
+          "mr_col_ntt_event_ms_per_proof": mr_proof_ms})
+
     t0 = time.perf_counter()
     params10 = ParamsIPA.cached(Vesta, 10, device=dev)
     circ = bench_circuit_for_k(10)
@@ -455,6 +639,17 @@ def main() -> int:
     sha = hashlib.sha256(tr.finalize()).hexdigest()
     require(sha == BENCH_K10_PROOF_SHA256, f"k=10 proof sha256 {sha} != {BENCH_K10_PROOF_SHA256}")
     emit({"phase": "golden_k10", "exact": True, "seconds": time.perf_counter() - t0})
+    # the same proof under the two other engines (bf16 Toeplitz products for mxu)
+    for engine in ("pallas", "mxu"):
+        t0 = time.perf_counter()
+        with environ(NTT=engine, MXU_DTYPE=None):
+            vk = keygen_vk(params10, circ.without_witnesses())
+            pk = keygen_pk(params10, vk, circ.without_witnesses())
+            tr = Blake2bWrite(Vesta)
+            create_proof(params10, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+            sha = hashlib.sha256(tr.finalize()).hexdigest()
+        require(sha == BENCH_K10_PROOF_SHA256, f"k=10 NTT={engine} proof sha256 {sha}")
+        emit({"phase": "golden_k10", "ntt": engine, "exact": True, "seconds": time.perf_counter() - t0})
 
     # ---- the k = 16 path: BenchCircuit through the sorted-bucket MSM ----
     k = 16
@@ -678,19 +873,22 @@ def main() -> int:
         )
         emit({"phase": "time", "kernel": name, **report[name]})
 
+    # each kernel's main path: its launches there and its CUDA-event time in one proof
+    paths = {name: ("k14", launches, proof_ms) for name in k14_kernels}
+    paths.update({name: ("k16", launches16, sorted_proof_ms) for name in k16_kernels})
+    paths["mr_col_ntt"] = ("k14 NTT=pallas", launches_mr, {"mr_col_ntt": mr_proof_ms})
+    paths.update({name: ("profile_kernels tilemul", tile_launches, {}) for name in tool_kernels})
     kernels = []
     for name, rec in report.items():
-        on_k16 = name in k16_kernels
+        path, counts, per_proof = paths[name]
         kernels.append({"name": name, "route": rec["route"], "source": rec["source"],
-                        "replaces": rec["replaces"],
-                        "launches": (launches16 if on_k16 else launches)[name],
-                        "main_path": "k16" if on_k16 else "k14",
+                        "replaces": rec["replaces"], "launches": counts[name], "main_path": path,
                         "max_abs_err": errs[name], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "shape": rec["shape"],
-                        "ms_per_warm_proof": (sorted_proof_ms if on_k16 else proof_ms)[name]})
-    require(sorted(report) == sorted(k14_kernels + k16_kernels), "every kernel has a report row")
+                        "shape": rec["shape"], "ms_per_warm_proof": per_proof.get(name)})
+    require(sorted(report) == sorted(paths), "every kernel has a report row")
+    require(len(report) == 10, "ten kernels")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

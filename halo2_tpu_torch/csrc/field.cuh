@@ -18,7 +18,9 @@
 // fits the 8 words and needs no final subtraction, but lands in [2p, 2p + d]
 // for about 2^-129 of uniform outputs. fe_add subtracts 2p once and fe_sub
 // adds 2p once, so an operand in that range still gives a result correct mod
-// p, unless it is fe_sub's b and a < b - 2p < 2^126: a further 2^-129.
+// p, unless it is fe_sub's b and a < b - 2p < 2^126: a further 2^-129. For
+// BN254's scalar field FrBn (kernel 8 serves it too), p < 2^254, so
+// 4p^2/R + p < 2p: the product stays below 2p and that range never occurs.
 #pragma once
 #include <cstdint>
 

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted")
+SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,9 +3,12 @@
 Counterpart of `halo2_tpu/ops/ntt.py`. `NttPlan` is the plain radix-2
 iterative Cooley-Tukey over (n, 16) Montgomery tensors, kept as the
 whole-transform reference. `get_plan` hands every basis change of the
-prover to the constant-geometry plan (`ops/ntt_cg.py`), whose levels run the
-hand-written CUDA kernel on a CUDA tensor and its plain version on a CPU
-tensor.
+prover to the engine that the NTT environment variable names: by default
+the constant-geometry plan (`ops/ntt_cg.py`, kernel 1), else the
+mixed-radix plan (`ops/ntt_mr.py`, kernel 8), the Toeplitz-product plan
+(`ops/mxu_mont.py`) or the radix-2 plan. The levels of the first two run
+their hand-written CUDA kernel on a CUDA tensor and its plain version on a
+CPU tensor.
 
 Semantics: a_i -> sum_j a_j w^{ij} for the plan's root w; the inverse pass
 uses omega_inv and the caller divides by n.
@@ -13,6 +16,7 @@ uses omega_inv and the caller divides by n.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Type
 
@@ -87,10 +91,38 @@ class NttPlan:
 
 
 def get_plan(field: Type[FieldElement], log_n: int, omega: int):
-    """The NTT every basis change uses: the constant-geometry plan."""
-    from .ntt_cg import CgNttPlan
+    """The NTT engine that the environment variable NTT names, read at each
+    call: the counterpart of `halo2_tpu/ops/ntt.py:103-138` and of the
+    reference's switch between its three FFT implementations (`fft.rs`).
 
-    return CgNttPlan(field, log_n, omega)
+    - unset, "auto", "cg" or "pallas2": `CgNttPlan` (kernel 1) at every
+      size. The JAX package's "auto" takes it only for log n >= 10 on a TPU
+      and the radix-2 plan otherwise; every plan computes the same DFT, so
+      that choice changes no byte, and the port keeps the plain radix-2 plan
+      off the card's main path.
+    - "pallas": `MrNttPlan`, the mixed-radix plan (kernel 8).
+    - "mxu": `MxuNttPlan`, stage twiddles as exact Toeplitz matrix products.
+    - "jnp": `NttPlan`, the plain radix-2 whole-transform reference.
+
+    Any other value raises ValueError: the JAX dispatcher falls back to the
+    radix-2 plan, which would hide a misspelt engine. The JAX package's mesh
+    branch is not ported (the port has no mesh)."""
+    impl = os.environ.get("NTT", "auto")
+    if impl in ("auto", "cg", "pallas2"):
+        from .ntt_cg import CgNttPlan
+
+        return CgNttPlan(field, log_n, omega)
+    if impl == "pallas":
+        from .ntt_mr import MrNttPlan
+
+        return MrNttPlan(field, log_n, omega)
+    if impl == "mxu":
+        from .mxu_mont import MxuNttPlan
+
+        return MxuNttPlan(field, log_n, omega)
+    if impl == "jnp":
+        return NttPlan(field, log_n, omega)
+    raise ValueError(f"NTT={impl!r}: expected one of auto, cg, pallas2, pallas, mxu, jnp")
 
 
 def intt(a: torch.Tensor, field: Type[FieldElement], omega_inv: int, n_inv: int) -> torch.Tensor:

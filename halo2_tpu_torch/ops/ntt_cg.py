@@ -163,17 +163,21 @@ class CgNttPlan:
         self.levels = levels
 
     def _tables(self, device):
+        """Every host table of every level (all but f and g) on `device`."""
         device = torch.device(device)
         if device not in self._dev:
             self._dev[device] = [
-                dict(
-                    stw=torch.as_tensor(lv["stw"], device=device),
-                    inter=None if lv["inter"] is None else torch.as_tensor(lv["inter"], device=device),
-                    rev=torch.as_tensor(lv["rev"], device=device),
-                )
+                {name: None if v is None else torch.as_tensor(v, device=device)
+                 for name, v in lv.items() if name not in ("f", "g")}
                 for lv in self.levels
             ]
         return self._dev[device]
+
+    def _level(self, cols: torch.Tensor, tab) -> torch.Tensor:
+        """One level over (cols, f, 16) columns, rows j1 in natural order ->
+        rows k1 in natural order, inter-level twiddle applied."""
+        y = cg_ntt_level(cols, tab["stw"], tab["inter"], self.ctx)
+        return y[:, tab["rev"]]  # slot order -> k1 order
 
     def _ntt_cols(self, x: torch.Tensor, level_idx: int, tabs) -> torch.Tensor:
         """x: (B, size, 16) -> NTT of every row block, natural in/out order."""
@@ -182,8 +186,7 @@ class CgNttPlan:
         B = x.shape[0]
         # split j = j1*g + j2; one column per (b, j2) holding the f values j1
         cols = x.reshape(B, f, g, NLIMBS).transpose(1, 2).reshape(B * g, f, NLIMBS).contiguous()
-        y = cg_ntt_level(cols, tab["stw"], tab["inter"], self.ctx)
-        y = y[:, tab["rev"]]  # slot order -> k1 order
+        y = self._level(cols, tab)
         if g == 1:
             return y.reshape(B, f, NLIMBS)
         # (b, j2, k1) -> (b, k1, j2): the remaining g-point transforms over j2
@@ -194,6 +197,6 @@ class CgNttPlan:
 
     def __call__(self, a: torch.Tensor) -> torch.Tensor:
         if tuple(a.shape) != (self.n, NLIMBS):
-            raise ValueError(f"CgNttPlan: expected ({self.n}, 16), got {tuple(a.shape)}")
+            raise ValueError(f"{type(self).__name__}: expected ({self.n}, 16), got {tuple(a.shape)}")
         tabs = self._tables(a.device)
         return self._ntt_cols(a.reshape(1, self.n, NLIMBS), 0, tabs).reshape(self.n, NLIMBS)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from halo2_tpu_torch.curves import Vesta
-from halo2_tpu_torch.ops import msm_bucket, msm_sorted
+from halo2_tpu_torch.ops import msm_bucket, msm_sorted, ntt_mr, tile_bench
 from halo2_tpu_torch.ops.curve import CurveCtx
 from halo2_tpu_torch.poly.ipa import ParamsIPA, resolve_device
 
@@ -26,6 +26,8 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax():
     mods = ["halo2_tpu_torch"] + _port_modules()
     assert "halo2_tpu_torch.ops.msm_sorted" in mods
+    assert {"halo2_tpu_torch.ops.ntt_mr", "halo2_tpu_torch.ops.mxu_mont",
+            "halo2_tpu_torch.tools.profile_kernels"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -95,3 +97,16 @@ def test_sorted_msm_wrappers_refuse_other_devices():
         msm_sorted.msm_sorted_fold(buckets, entries, gstart, rows, rows, cc)
     with pytest.raises(ValueError, match="unsupported device"):
         msm_sorted.msm_sorted_horner(torch.empty((16, 3, 16), dtype=torch.int32, device="meta"), cc)
+
+
+def test_slice_three_wrappers_refuse_other_devices():
+    cc = CurveCtx(Vesta)
+    ctx = cc.fctx
+    x = torch.empty((2, 4, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ntt_mr.mr_col_ntt(x, torch.empty((2, 2, 16), dtype=torch.int32, device="meta"), None, ctx)
+    rows = torch.empty((8, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_bench.tile_mul(rows, rows, ctx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_bench.tile_padd(rows, rows, rows, rows, rows, cc)

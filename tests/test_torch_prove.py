@@ -59,6 +59,22 @@ def test_mul_circuit_k4_golden_bytes_and_verify():
         verify_proof(params, vk, [[[42]]], Blake2bRead(Vesta, proof))
 
 
+@pytest.mark.parametrize("engine", ["pallas", "mxu", "jnp"])
+def test_mul_circuit_k4_golden_bytes_under_ntt_engine(engine, monkeypatch):
+    """Every NTT engine computes the same DFT, so the golden VK and proof
+    bytes do not move when NTT switches every basis change to it."""
+    monkeypatch.setenv("NTT", engine)
+    params = ParamsIPA.cached(Vesta, 4, device="cpu")
+    vk = keygen_vk(params, MulCircuit(7))
+    pk = keygen_pk(params, vk, MulCircuit(7))
+    assert hex(vk.transcript_repr) == GOLDEN["vk_transcript_repr"]
+    assert hashlib.sha256(vk.pinned_repr().encode()).hexdigest() == GOLDEN["vk_pinned_sha256"]
+    c = 7 * 4 * 9
+    proof = _prove(params, pk, MulCircuit(7, 2, 3), [[c]])
+    assert hashlib.sha256(proof).hexdigest() == GOLDEN["proof_sha256"]
+    assert verify_proof(params, vk, [[[c]]], Blake2bRead(Vesta, proof)) is True
+
+
 @pytest.fixture(scope="module")
 def k4_keys():
     """MulCircuit k = 4 keys of both packages."""
