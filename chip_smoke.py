@@ -4,20 +4,25 @@
 
 Builds the ten CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
-main path's shapes and times both, reproduces the golden proof bytes of
+main path's shapes and times both (the bucket MSM's kernels 2-4 at both
+window widths: c = 4 at M = 3, n = 2^14 + 1 and c = 8 at M = 2, n = 2^15,
+each MSM also against msm_host), reproduces the golden proof bytes of
 MulCircuit (k = 4), and drives four paths, each with the kernels' launch
 counters set to 0 just before it and read just after:
 
 * k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
-  verify_proof for BenchCircuit, which runs kernels 1-4. It then proves the
+  verify_proof for BenchCircuit, which runs kernels 1-4; the proof has the
+  pinned bytes (BENCH_K14_PROOF_SHA256). It then proves the
   same circuit twice more, warm: once plain, once with the four kernels timed
   by CUDA events and every kernel on the card traced by torch.profiler, which
   gives the device time of one proof; and reproduces the proof bytes of
   BenchCircuit at k = 10.
 * k = 16: the same entry points for BenchCircuit at k = 16, where keygen's
   sigma commits, the vanishing argument's random commit and the verifier's
-  final MSM take the sorted-bucket MSM (kernels 5-7). The proof verifies, a
-  flipped byte is rejected, and the proof made again with the sorted MSM
+  final MSM take the sorted-bucket MSM (kernels 5-7) and every other MSM the
+  bucket MSM at c = 8 (kernels 2-4, timed by CUDA events through the proof
+  beside kernels 5-7). The proof has the pinned bytes (BENCH_K16_PROOF_SHA256)
+  and verifies, a flipped byte is rejected, and the proof made again with the sorted MSM
   switched off, then once more with it on, has the same bytes (those two
   proofs are both warm, so their times compare); commit_lagrange(v) =
   commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
@@ -64,6 +69,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the proof the JAX package makes on the CPU (tests/test_torch_prove.py
 # names the command).
 BENCH_K10_PROOF_SHA256 = "08b4952d1b1cac2b4951ac6097ac2f6a260cddc729bb0d54cb788de8510af1db"
+# BenchCircuit at k = 14 and k = 16, the same seed and rng: the sha256 of the
+# proofs that the port made on an H100 before kernels 2 and 3 were redesigned
+# (halo2_tpu_torch/tools/msm_ab.py --proofs on that commit).
+BENCH_K14_PROOF_SHA256 = "24f3939ad97fc72b182872d727af9089a4beff8e3801f72c6d2e0c16be9f29d9"
+BENCH_K16_PROOF_SHA256 = "5f9b3d057d85eada10660f86ab6c2899182c7e6bfeb5ac0c247277506b23987f"
 
 # Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
 # work the assumed peak is 64 32-bit multiply instructions per clock per SM
@@ -422,65 +432,66 @@ def main() -> int:
         rp = msm_bucket.msm_lane_reduce_plain(fk, cc)
         same("msm_lane_reduce", rk, rp, pctx, f"msm_lane_reduce n={n}: kernel != plain")
         pts = msm_bucket.msm_bucket_many(canon, bases, mont=False)
-        checked_host = False
-        if c == 4:
-            ints = limbs_to_ints(canon[0].cpu())
-            require(pts[0] == msm_host(ints, bases_pts[:n], Vesta), f"MSM n={n} != msm_host")
-            checked_host = True
+        t2 = time.perf_counter()
+        ints = limbs_to_ints(canon[0].cpu())
+        require(pts[0] == msm_host(ints, bases_pts[:n], Vesta), f"MSM n={n} != msm_host")
         emit({"phase": "msm", "n": n, "M": M, "c": c, "nwin": nwin, "T": T, "exact": True,
-              "host_checked": checked_host, "seconds": time.perf_counter() - t1})
-        if c == 4:
-            rows, B = M * nwin, 1 << c
-            d = torch.stack([(scal_t[:, (w * c) >> 4] >> ((w * c) & 15)) & (B - 1)
-                             for w in range(nwin)], dim=1).reshape(rows, n_pad).long()
-            nz = d != 0
-            # the first point into a bucket is a copy; each later one an addition
-            lane = torch.arange(n_pad, device=dev) % T
-            key = (torch.arange(rows, device=dev)[:, None] * T + lane) * B + d
-            occ = torch.zeros(rows * T * B, dtype=torch.bool, device=dev)
-            occ[key[nz]] = True
-            occ = occ.reshape(rows, T, B)[..., 1:]
-            accum_adds = int(nz.sum()) - int(occ.sum())
-            # fold: run += S_b over occupied buckets, total += run from the
-            # highest occupied bucket down; the first of each is a copy
-            top = (occ * torch.arange(1, B, device=dev)).amax(-1)
-            fold_adds = int((occ.sum(-1) - 1).clamp(min=0).sum() + (top - 1).clamp(min=0).sum())
-            mul = mont_mul_instrs(pctx.p_int)
-            emit({"phase": "msm_work", "n": n, "M": M, "nonzero_digits": int(nz.sum()),
-                  "accum_adds": accum_adds, "fold_adds": fold_adds,
-                  "bucket_occupancy": float(occ.float().mean()),
-                  "mont_mul_instrs": mul})
-            timings = {
-                "msm_accum": (
-                    lambda: msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, cc),
-                    lambda: msm_bucket.msm_accum_plain(scal_t, db.px, db.py, c, nwin, T, cc),
-                    4 * (scal_t.numel() + db.px.numel() + db.py.numel() + bk.numel()),
-                    mul * MIXED_ADD_PRODUCTS * accum_adds,
-                    "halo2_tpu/ops/msm_pallas.py:232",
-                ),
-                "msm_fold": (
-                    lambda: msm_bucket.msm_fold(bk, cc),
-                    lambda: msm_bucket.msm_fold_plain(bk, cc),
-                    4 * (bk.numel() + fk.numel()),
-                    mul * FULL_ADD_PRODUCTS * fold_adds,
-                    "halo2_tpu/ops/msm_pallas.py:302",
-                ),
-                "msm_lane_reduce": (
-                    lambda: msm_bucket.msm_lane_reduce(fk, cc),
-                    lambda: msm_bucket.msm_lane_reduce_plain(fk, cc),
-                    4 * (fk.numel() + rk.numel()),
-                    mul * FULL_ADD_PRODUCTS * (T - 1) * rows,
-                    "halo2_tpu/ops/msm_pallas.py:357",
-                ),
-            }
-            for name, (kfn, pfn, nbytes, muls, replaces) in timings.items():
-                b_ms, b_by = bound(nbytes, muls)
-                report[name] = dict(
-                    route="cuda", source="halo2_tpu_torch/csrc/msm_bucket.cu", replaces=replaces,
-                    ms=time_ms(kfn), plain_ms=time_ms(pfn, 1), bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, shape=f"M={M} n={n} c={c} T={T}",
-                )
-                emit({"phase": "time", "kernel": name, **report[name]})
+              "host_checked": True, "msm_host_s": time.perf_counter() - t2,
+              "seconds": time.perf_counter() - t1})
+        rows, B = M * nwin, 1 << c
+        d = torch.stack([(scal_t[:, (w * c) >> 4] >> ((w * c) & 15)) & (B - 1)
+                         for w in range(nwin)], dim=1).reshape(rows, n_pad).long()
+        nz = d != 0
+        # the first point into a bucket is a copy; each later one an addition
+        lane = torch.arange(n_pad, device=dev) % T
+        key = (torch.arange(rows, device=dev)[:, None] * T + lane) * B + d
+        occ = torch.zeros(rows * T * B, dtype=torch.bool, device=dev)
+        occ[key[nz]] = True
+        occ = occ.reshape(rows, T, B)[..., 1:]
+        accum_adds = int(nz.sum()) - int(occ.sum())
+        # fold: run += S_b over occupied buckets, total += run from the
+        # highest occupied bucket down; the first of each is a copy
+        top = (occ * torch.arange(1, B, device=dev)).amax(-1)
+        fold_adds = int((occ.sum(-1) - 1).clamp(min=0).sum() + (top - 1).clamp(min=0).sum())
+        mul = mont_mul_instrs(pctx.p_int)
+        emit({"phase": "msm_work", "n": n, "M": M, "c": c, "nonzero_digits": int(nz.sum()),
+              "accum_adds": accum_adds, "fold_adds": fold_adds,
+              "bucket_occupancy": float(occ.float().mean()),
+              "mont_mul_instrs": mul})
+        timings = {
+            "msm_accum": (
+                lambda: msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, cc),
+                lambda: msm_bucket.msm_accum_plain(scal_t, db.px, db.py, c, nwin, T, cc),
+                4 * (scal_t.numel() + db.px.numel() + db.py.numel() + bk.numel()),
+                mul * MIXED_ADD_PRODUCTS * accum_adds,
+                "halo2_tpu/ops/msm_pallas.py:232",
+            ),
+            "msm_fold": (
+                lambda: msm_bucket.msm_fold(bk, cc),
+                lambda: msm_bucket.msm_fold_plain(bk, cc),
+                4 * (bk.numel() + fk.numel()),
+                mul * FULL_ADD_PRODUCTS * fold_adds,
+                "halo2_tpu/ops/msm_pallas.py:302",
+            ),
+            "msm_lane_reduce": (
+                lambda: msm_bucket.msm_lane_reduce(fk, cc),
+                lambda: msm_bucket.msm_lane_reduce_plain(fk, cc),
+                4 * (fk.numel() + rk.numel()),
+                mul * FULL_ADD_PRODUCTS * (T - 1) * rows,
+                "halo2_tpu/ops/msm_pallas.py:357",
+            ),
+        }
+        # the k = 14 commit shape (c = 4) is each kernel's row; c = 8 rides along
+        for name, (kfn, pfn, nbytes, muls, replaces) in timings.items():
+            b_ms, b_by = bound(nbytes, muls)
+            row = dict(ms=time_ms(kfn), plain_ms=time_ms(pfn, 1), bound_ms=b_ms, bound_by=b_by,
+                       shape=f"M={M} n={n} c={c} T={T}")
+            if c == 4:
+                report[name] = dict(route="cuda", source="halo2_tpu_torch/csrc/msm_bucket.cu",
+                                    replaces=replaces, library_ms=None, **row)
+            else:
+                report[name]["at_c8"] = row
+            emit({"phase": "time", "kernel": name, "c": c, **row})
 
     # ---- golden proofs on the card ----
     golden = json.load(open(os.path.join(ROOT, "tests", "fixtures_golden.json")))
@@ -524,6 +535,8 @@ def main() -> int:
     t5 = time.perf_counter()
     launches = read_launches()
     require(ok is True, "k=14 verify")
+    sha14 = hashlib.sha256(proof).hexdigest()
+    require(sha14 == BENCH_K14_PROOF_SHA256, f"k=14 proof sha256 {sha14} != {BENCH_K14_PROOF_SHA256}")
     stages.update(params_s=t1 - t0, keygen_vk_s=t2 - t1, keygen_pk_s=t3 - t2, prove_s=t4 - t3,
                   verify_s=t5 - t4)
     bad = bytearray(proof)
@@ -668,11 +681,13 @@ def main() -> int:
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     marks["keygen_pk"] = (read_launches(), read_routes())
-    # kernels 5-7 timed by CUDA events through the proof
+    # kernels 5-7 and the bucket MSM's kernels 2-4 timed by CUDA events through the proof
     sorted_log = []
-    originals = {name: getattr(msm_sorted, name) for name in k16_kernels}
-    for name in k16_kernels:
-        setattr(msm_sorted, name, timed(name, originals[name], sorted_log))
+    wrapped = ([(msm_sorted, name) for name in k16_kernels]
+               + [(msm_bucket, name) for name in msm_bucket.LAUNCHES])
+    originals = {name: getattr(mod, name) for mod, name in wrapped}
+    for mod, name in wrapped:
+        setattr(mod, name, timed(name, originals[name], sorted_log))
     reset_records()
     try:
         t5 = time.perf_counter()
@@ -682,8 +697,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t6 = time.perf_counter()
     finally:
-        for name in k16_kernels:
-            setattr(msm_sorted, name, originals[name])
+        for mod, name in wrapped:
+            setattr(mod, name, originals[name])
     prove_spans16 = get_records()
     marks["prove"] = (read_launches(), read_routes())
     reset_records()
@@ -692,6 +707,8 @@ def main() -> int:
     verify_spans16 = get_records()
     marks["verify"] = (read_launches(), read_routes())
     require(ok is True, "k=16 verify")
+    sha16 = hashlib.sha256(proof16).hexdigest()
+    require(sha16 == BENCH_K16_PROOF_SHA256, f"k=16 proof sha256 {sha16} != {BENCH_K16_PROOF_SHA256}")
     launches16 = marks["verify"][0]
     routes16 = marks["verify"][1]
     stage_launches, stage_routes, prev = {}, {}, ({}, {})
@@ -717,9 +734,11 @@ def main() -> int:
     MSMBases(Vesta, params16.g + [params16.w, params16.u], dev).device_rows(dev)
     torch.cuda.synchronize()
     host_bases_s = time.perf_counter() - t8
-    sorted_proof_ms = {name: 0.0 for name in k16_kernels}
+    k16_proof_ms = {name: 0.0 for name in originals}
     for name, start, end in sorted_log:
-        sorted_proof_ms[name] += start.elapsed_time(end)
+        k16_proof_ms[name] += start.elapsed_time(end)
+    sorted_proof_ms = {name: k16_proof_ms[name] for name in k16_kernels}
+    bucket_proof_ms = {name: k16_proof_ms[name] for name in msm_bucket.LAUNCHES}
     emit({"phase": "main_path_k16", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
           "proof_bytes": len(proof16), "verified": True, "flipped_byte_rejected": True,
           "stages": dict(params_read_s=t1 - t0, synthesis_setup_s=t2 - t1, keygen_vk_s=t3 - t2,
@@ -729,7 +748,10 @@ def main() -> int:
           "launches_by_stage": stage_launches, "routes": routes16,
           "routes_by_stage": stage_routes,
           "sorted_overflows": sum(overflows.values()),
-          "sorted_kernels_event_ms_per_proof": sorted_proof_ms})
+          "sorted_kernels_event_ms_per_proof": sorted_proof_ms,
+          "bucket_kernels_event_ms_per_proof": bucket_proof_ms,
+          "bucket_launches_by_stage": {stage: {name: counts[name] for name in msm_bucket.LAUNCHES}
+                                       for stage, counts in stage_launches.items()}})
 
     # the same proof with the sorted MSM switched off: the same bytes; then
     # once more with it on, so that both timed proofs are warm
@@ -886,7 +908,9 @@ def main() -> int:
                         "max_abs_err": errs[name], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "shape": rec["shape"], "ms_per_warm_proof": per_proof.get(name)})
+                        "shape": rec["shape"], "ms_per_warm_proof": per_proof.get(name),
+                        **({"at_c8": rec["at_c8"], "ms_per_k16_proof": bucket_proof_ms[name],
+                            "launches_k16": launches16[name]} if "at_c8" in rec else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")
     emit({"kernels": kernels})

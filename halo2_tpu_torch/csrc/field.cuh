@@ -266,3 +266,64 @@ __device__ __forceinline__ Pt pt_add(const Pt& a, const Pt& b, const FieldConsts
   r.z = Z3;
   return r;
 }
+
+// ---- the skip rule, shared by the bucket fold (kernel 3) and kernels 5-7 ----
+// An operand that is the identity (Z = 0 mod p) is not added: the other one
+// is returned as it is. The plain versions (ops/curve.py add_skip, dbl_skip)
+// apply the same rule, so kernel and plain give the same coordinates.
+
+// a >= b as 256-bit integers.
+__device__ __forceinline__ bool fe_geq(const Fe& a, const uint32_t* b) {
+#pragma unroll
+  for (int i = 7; i >= 0; --i) {
+    if (a.v[i] != b[i]) return a.v[i] > b[i];
+  }
+  return true;
+}
+
+// z = 0 mod p. Lazy values lie below 2^256 < 4p, so z is 0 mod p iff, after
+// taking 2p off once if z >= 2p, it is 0 or p.
+__device__ __forceinline__ bool is_identity(const Pt& a, const FieldConsts& k) {
+  Fe z = a.z;
+  if (fe_geq(z, k.twop)) {
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint64_t x = (uint64_t)z.v[i] - k.twop[i] - borrow;
+      z.v[i] = (uint32_t)x;
+      borrow = x >> 63;
+    }
+  }
+  bool zero = true, isp = true;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    zero &= z.v[i] == 0;
+    isp &= z.v[i] == k.p[i];
+  }
+  return zero || isp;
+}
+
+// b is the identity -> a; a is the identity -> b; else a + b.
+__device__ __forceinline__ Pt add_skip(const Pt& a, const Pt& b, const FieldConsts& k) {
+  if (is_identity(b, k)) return a;
+  if (is_identity(a, k)) return b;
+  return pt_add(a, b, k);
+}
+
+__device__ __forceinline__ Pt dbl_skip(const Pt& a, const FieldConsts& k) {
+  return is_identity(a, k) ? a : pt_double(a, k);
+}
+
+// The point of the thread d lanes up within segments of `width` lanes (all
+// 32 lanes of the warp take part); a thread whose source lies beyond its
+// segment gets its own point back.
+__device__ __forceinline__ Pt shfl_down_pt(const Pt& a, int d, int width = 32) {
+  Pt r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r.x.v[i] = __shfl_down_sync(0xffffffffu, a.x.v[i], d, width);
+    r.y.v[i] = __shfl_down_sync(0xffffffffu, a.y.v[i], d, width);
+    r.z.v[i] = __shfl_down_sync(0xffffffffu, a.z.v[i], d, width);
+  }
+  return r;
+}

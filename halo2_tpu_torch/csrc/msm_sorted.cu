@@ -54,7 +54,6 @@ constexpr int W = 1024;        // lanes per window
 constexpr int KB = 32;         // buckets per lane; W * KB = 2^15
 constexpr int SIDE_CAP = 128;  // side-list slots per window
 constexpr int PT = 48;         // int32 limbs per projective point
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ Pt pt_load(const int32_t* src) {
   Pt r;
@@ -68,48 +67,6 @@ __device__ __forceinline__ void pt_store(int32_t* dst, const Pt& p) {
   fe_store16(dst, 1, p.x);
   fe_store16(dst + 16, 1, p.y);
   fe_store16(dst + 32, 1, p.z);
-}
-
-// a >= b as 256-bit integers.
-__device__ __forceinline__ bool fe_geq(const Fe& a, const uint32_t* b) {
-#pragma unroll
-  for (int i = 7; i >= 0; --i) {
-    if (a.v[i] != b[i]) return a.v[i] > b[i];
-  }
-  return true;
-}
-
-// z = 0 mod p. Lazy values lie below 2^256 < 4p, so z is 0 mod p iff, after
-// taking 2p off once if z >= 2p, it is 0 or p.
-__device__ __forceinline__ bool is_identity(const Pt& a, const FieldConsts& k) {
-  Fe z = a.z;
-  if (fe_geq(z, k.twop)) {
-    uint64_t borrow = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint64_t x = (uint64_t)z.v[i] - k.twop[i] - borrow;
-      z.v[i] = (uint32_t)x;
-      borrow = x >> 63;
-    }
-  }
-  bool zero = true, isp = true;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    zero &= z.v[i] == 0;
-    isp &= z.v[i] == k.p[i];
-  }
-  return zero || isp;
-}
-
-// The skip rule: b is the identity -> a; a is the identity -> b; else a + b.
-__device__ __forceinline__ Pt add_skip(const Pt& a, const Pt& b, const FieldConsts& k) {
-  if (is_identity(b, k)) return a;
-  if (is_identity(a, k)) return b;
-  return pt_add(a, b, k);
-}
-
-__device__ __forceinline__ Pt dbl_skip(const Pt& a, const FieldConsts& k) {
-  return is_identity(a, k) ? a : pt_double(a, k);
 }
 
 // Affine (x, y) into a: copied with Z = 1 if a is the identity.
@@ -131,17 +88,6 @@ __device__ __forceinline__ void load_base(const int32_t* px, const int32_t* py, 
   x = fe_load16(px + src * 16, 1);
   y = fe_load16(py + src * 16, 1);
   if (neg) y = fe_sub(fe_zero(), y, k);
-}
-
-__device__ __forceinline__ Pt shfl_down_pt(const Pt& a, int d) {
-  Pt r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    r.x.v[i] = __shfl_down_sync(FULL, a.x.v[i], d);
-    r.y.v[i] = __shfl_down_sync(FULL, a.y.v[i], d);
-    r.z.v[i] = __shfl_down_sync(FULL, a.z.v[i], d);
-  }
-  return r;
 }
 
 // Sum over the warp into lane 0: pairs (j, j + d) for d = 16, 8, 4, 2, 1.

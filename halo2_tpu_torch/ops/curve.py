@@ -189,3 +189,64 @@ def padd_mixed(a: PointVec, X2: torch.Tensor, Y2: torch.Tensor, cc: CurveCtx) ->
     Z3 = mont_mul(Z3, t4, ctx)
     Z3 = add_mod(Z3, t0, ctx)
     return PointVec(X3, Y3, Z3)
+
+
+# ---------------- the skip rule, plain ----------------
+# An operand that is the identity (Z = 0 mod p) is not added: the other one is
+# returned as it is. The bucket fold (kernel 3) and kernels 5-7 apply the same
+# rule on the card (csrc/field.cuh add_skip, dbl_skip), so their plain
+# versions give the kernels' projective coordinates.
+
+_zero_cache: dict = {}
+
+
+def _zero_reps(cc: CurveCtx, device) -> torch.Tensor:
+    """Limbs of the multiples of p below 2^256: the lazy forms of 0."""
+    key = (cc.fctx.p_int, torch.device(device))
+    if key not in _zero_cache:
+        p = cc.fctx.p_int
+        _zero_cache[key] = torch.as_tensor(
+            ints_to_limbs([k * p for k in range(4) if k * p < 1 << 256]), device=device)
+    return _zero_cache[key]
+
+
+def is_identity(z: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
+    return (z.unsqueeze(-2) == _zero_reps(cc, z.device)).all(-1).any(-1)
+
+
+def pick(pv: PointVec, idx) -> PointVec:
+    return PointVec(*(t[idx] for t in pv))
+
+
+def put(pv: PointVec, idx, val: PointVec) -> None:
+    for t, v in zip(pv, val):
+        t[idx] = v
+
+
+def add_skip(a: PointVec, b: PointVec, cc: CurveCtx) -> PointVec:
+    """b the identity -> a; a the identity -> b; else the complete a + b."""
+    ia, ib = is_identity(a.z, cc), is_identity(b.z, cc)
+    out = PointVec(*(torch.where(ib[..., None], x, y) for x, y in zip(a, b)))
+    idx = (~(ia | ib)).nonzero(as_tuple=True)
+    if idx[0].numel():
+        put(out, idx, padd(pick(a, idx), pick(b, idx), cc))
+    return out
+
+
+def dbl_skip(a: PointVec, cc: CurveCtx) -> PointVec:
+    out = PointVec(*(t.clone() for t in a))
+    idx = (~is_identity(a.z, cc)).nonzero(as_tuple=True)
+    if idx[0].numel():
+        put(out, idx, pdouble(pick(a, idx), cc))
+    return out
+
+
+def add_affine_skip(a: PointVec, x: torch.Tensor, y: torch.Tensor, cc: CurveCtx) -> PointVec:
+    """Affine (x, y) into a; copied with Z = 1 where a is the identity."""
+    ia = is_identity(a.z, cc)
+    one = cc.fctx.one(x.device).expand_as(x)
+    out = PointVec(x.clone(), y.clone(), one.clone())
+    idx = (~ia).nonzero(as_tuple=True)
+    if idx[0].numel():
+        put(out, idx, padd_mixed(pick(a, idx), x[idx], y[idx], cc))
+    return out

@@ -8,23 +8,32 @@ version beside it that computes the same tensors:
 
 1. `msm_accum` (replaces `_accum_fn`): row = (msm, window), T lanes per
    row; lane t owns 2^c buckets and adds base i (i = t mod T) into bucket
-   digit_i with the complete mixed addition. Digit 0 is skipped, so bucket 0
-   stays the identity.
-2. `msm_fold` (replaces `_fold_fn`): per lane, running/total suffix sums
-   over buckets 2^c - 1 .. 1, i.e. sum_b b * S_b.
+   digit_i with the complete mixed addition, from the identity, in ascending
+   i. Digit 0 is skipped, so bucket 0 stays the identity. The kernel sorts a
+   block's digits by bucket and sums each bucket in registers; the additions
+   per bucket and their order are the plain version's, so the bucket tensor
+   is bit for bit the same.
+2. `msm_fold` (replaces `_fold_fn`): per lane sum_b b * S_b, cut into
+   S = 2^c / L segments of L = 2^l buckets (`FOLD_LOG_SEGMENT`): in each a
+   running/total suffix sum gives W_j = sum_r r * S_{jL+r} and Sum_j; then
+   sum_b b * S_b = sum_j W_j + L * sum_{j >= 1} U_j with U_j = sum_{i >= j}
+   Sum_i, by a suffix scan over segments, l doublings and a tree. Every
+   addition follows the skip rule (`ops/curve.py` add_skip): the plain version
+   makes the kernel's additions in the kernel's order, with the segments as
+   a batch dimension.
 3. `msm_lane_reduce` (replaces `_lane_reduce_fn`): tree sum of the T lane
    partials of each row (T a power of two).
 
 The window sums come back to the host once (`CurveCtx.decode_points`) and
 are combined by Horner over windows with c doublings per step, as
-`msm_pallas.py:447-456` does. On CUDA a row has T = 128 lanes, one thread
-each. The plain versions run the same stages with at most 8 lanes on the
-CPU: there a lane is no thread, and every lane adds 2 * (2^c - 1) full
-additions to the fold, which 128 lanes would make the bulk of a small MSM's
-work.
+`msm_pallas.py:447-456` does. On CUDA a row has T = 128 lanes. The plain
+versions run the same stages with at most 8 lanes on the CPU: there a lane
+is no thread, and every lane adds its fold's additions, which 128 lanes
+would make the bulk of a small MSM's work.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors. None of the kernels has a library counterpart: no
+version for CPU tensors; it counts one launch in `LAUNCHES` per call (each
+is one kernel launch). None of the kernels has a library counterpart: no
 PyTorch call computes a bucket MSM.
 """
 
@@ -37,18 +46,26 @@ import torch
 
 from ..curves import JAC_IDENTITY, Curve, Point, jac_add, jac_double
 from . import _build
-from .curve import CurveCtx, PointVec, padd, padd_mixed
+from .curve import CurveCtx, PointVec, add_skip, dbl_skip, padd, padd_mixed
 from .field import NLIMBS, FieldCtx, from_mont, ints_to_limbs
 
 LANES = 128
 CPU_LANES = 8
+# Kernel 2 gives a block about this many points (G lanes of n_pad / T points),
+# in at most ACCUM_SMEM_TARGET bytes of shared memory where G > 1 allows, so
+# that three blocks fit an H100 SM; no block can have more than ACCUM_SMEM_MAX.
+ACCUM_POINTS_PER_BLOCK = 16384
+ACCUM_SMEM_TARGET = 75 * 1024
+ACCUM_SMEM_MAX = 232448
+# log2 of the fold's segment length L per window width c.
+FOLD_LOG_SEGMENT = {4: 4, 8: 5}
 LAUNCHES = {"msm_accum": 0, "msm_fold": 0, "msm_lane_reduce": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
-    "msm_accum": (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P, _P),
-    "msm_fold": (_P, _P, _I, _I, _I, _P, _P),
+    "msm_accum": (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P, _P),
+    "msm_fold": (_P, _P, _I, _I, _I, _I, _P, _P),
     "msm_lane_reduce": (_P, _P, _I, _I, _P, _P),
 }
 
@@ -71,8 +88,10 @@ def _consts(cc: CurveCtx):
 
 
 # ---------------- layout helpers ----------------
-# buckets (rows, B, 3, 16, T) and parts (rows, 3, 16, T) keep lanes innermost;
-# the plain versions work on (..., T, 16) point tensors and convert.
+# buckets (rows, T, B, 3, 16) keep each bucket's 48 limbs together, so a
+# thread of kernel 2 writes a bucket as 192 contiguous bytes and a thread of
+# kernel 3 reads it so; parts (rows, 3, 16, T) keep lanes innermost. The plain
+# versions work on (..., T, 16) point tensors and convert.
 
 
 def _to_lane_major(t: torch.Tensor) -> PointVec:
@@ -113,26 +132,41 @@ def msm_accum_plain(scal: torch.Tensor, px: torch.Tensor, py: torch.Tensor, c: i
         keep = (d != 0).unsqueeze(-1)
         for store, val, old in ((bx, new.x, cur.x), (by, new.y, cur.y), (bz, new.z, cur.z)):
             store[r_idx, d, t_idx] = torch.where(keep, val, old)
-    return _from_lane_major(PointVec(bx, by, bz))  # (rows, B, 3, 16, T)
+    return torch.stack([bx, by, bz], dim=-2).transpose(1, 2).contiguous()  # (rows, T, B, 3, 16)
+
+
+def accum_block(n_pad: int, T: int, c: int):
+    """(G, shared bytes) of one kernel-2 block: G lanes (a power of two
+    dividing T) of P = n_pad / T points, their digits, counts and sorted list
+    (`accum_smem` in csrc/msm_bucket.cu)."""
+    P = n_pad // T
+    G = 1 << max(0, (ACCUM_POINTS_PER_BLOCK // max(P, 1)).bit_length() - 1)
+    G = min(G, T, (1 << 15) >> c)  # a sorted item holds the key g * 2^c + d in 15 bits
+    while G > 1 and 4 * (G * (1 << c) + 1) + 5 * G * P > ACCUM_SMEM_TARGET:
+        G //= 2
+    return G, 4 * (G * (1 << c) + 1) + 5 * G * P
 
 
 def msm_accum(scal: torch.Tensor, px: torch.Tensor, py: torch.Tensor, c: int, nwin: int,
               T: int, cc: CurveCtx) -> torch.Tensor:
     """scal (M, 16, n_pad) canonical limbs; px/py (16, n_pad) affine
-    Montgomery bases -> buckets (M * nwin, 2^c, 3, 16, T)."""
+    Montgomery bases -> buckets (M * nwin, T, 2^c, 3, 16)."""
     if not _build.on_card(scal, "msm_accum"):
         return msm_accum_plain(scal, px, py, c, nwin, T, cc)
     M, _, n_pad = scal.shape
     if c not in (4, 8) or n_pad % T or T > 1024 or T & (T - 1):
         raise ValueError(f"msm_accum: bad geometry c={c} T={T} n_pad={n_pad}")
+    G, smem = accum_block(n_pad, T, c)
+    if n_pad // T >= 1 << 17 or smem > ACCUM_SMEM_MAX:
+        raise ValueError(f"msm_accum: {n_pad // T} points per lane do not fit a block")
     _build.check_tensor(scal, (M, NLIMBS, n_pad), "scal", scal.device)
     _build.check_tensor(px, (NLIMBS, n_pad), "px", scal.device)
     _build.check_tensor(py, (NLIMBS, n_pad), "py", scal.device)
     rows = M * nwin
-    out = torch.empty((rows, 1 << c, 3, NLIMBS, T), dtype=torch.int32, device=scal.device)
+    out = torch.empty((rows, T, 1 << c, 3, NLIMBS), dtype=torch.int32, device=scal.device)
     lib = _build.load("msm_bucket", _SIG)
     err = lib.msm_accum(scal.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), rows,
-                        nwin, n_pad, T, c, ctypes.byref(_consts(cc)),
+                        nwin, n_pad, T, c, G, ctypes.byref(_consts(cc)),
                         torch.cuda.current_stream(scal.device).cuda_stream)
     _build.check(err, "msm_accum")
     LAUNCHES["msm_accum"] += 1
@@ -142,26 +176,59 @@ def msm_accum(scal: torch.Tensor, px: torch.Tensor, py: torch.Tensor, c: int, nw
 # ---------------- kernel 3: bucket fold ----------------
 
 
-def msm_fold_plain(buckets: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
-    rows, B, _, _, T = buckets.shape
-    bk = _to_lane_major(buckets)  # (rows, B, T, 16) each
-    run = cc.identity_vec((rows, T), buckets.device)
-    total = run
-    for b in range(B - 1, 0, -1):
-        run = padd(run, PointVec(bk.x[:, b], bk.y[:, b], bk.z[:, b]), cc)
-        total = padd(total, run, cc)
-    return _from_lane_major(total)  # (rows, 3, 16, T)
+def _fold_log_segment(B: int, l):
+    """l, checked: 2^l divides B into at most 32 segments (one warp's lanes)."""
+    if l is None:
+        l = FOLD_LOG_SEGMENT[B.bit_length() - 1]
+    if not 0 <= l < B.bit_length() or B >> l > 32:
+        raise ValueError(f"msm_fold: segment 2^{l} does not cut {B} buckets into 1-32")
+    return l
+
+
+def msm_fold_plain(buckets: torch.Tensor, cc: CurveCtx, l=None) -> torch.Tensor:
+    """The kernel's additions in the kernel's order; `l` other than the
+    default only to hold other segment lengths to the same sums."""
+    rows, T, B, _, _ = buckets.shape
+    l = _fold_log_segment(B, l)
+    L, S = 1 << l, B >> l
+    seg = buckets.reshape(rows, T, S, L, 3, NLIMBS)
+    run = cc.identity_vec((rows, T, S), buckets.device)
+    tot = run
+    for r in range(L - 1, 0, -1):  # running and total suffix sums: tot = W_j
+        run = add_skip(run, PointVec(*seg[:, :, :, r].unbind(-2)), cc)
+        tot = add_skip(tot, run, cc)
+    run = add_skip(run, PointVec(*seg[:, :, :, 0].unbind(-2)), cc)  # Sum_j
+    d = 1
+    while d < S:  # suffix scan: U_j = sum_{i >= j} Sum_i
+        head = add_skip(PointVec(*(t[:, :, : S - d] for t in run)),
+                        PointVec(*(t[:, :, d:] for t in run)), cc)
+        run = PointVec(*(torch.cat([h, t[:, :, S - d :]], 2) for h, t in zip(head, run)))
+        d *= 2
+    idv = cc.identity_vec((rows, T, 1), buckets.device)
+    run = PointVec(*(torch.cat([i, t[:, :, 1:]], 2) for i, t in zip(idv, run)))  # U_0 dropped
+    for _ in range(l):
+        run = dbl_skip(run, cc)
+    x = add_skip(tot, run, cc)
+    d = S // 2
+    while d >= 1:  # tree over segments into segment 0
+        x = add_skip(PointVec(*(t[:, :, :d] for t in x)),
+                     PointVec(*(t[:, :, d : 2 * d] for t in x)), cc)
+        d //= 2
+    return _from_lane_major(PointVec(*(t[:, :, 0] for t in x)))  # (rows, 3, 16, T)
 
 
 def msm_fold(buckets: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
-    """buckets (rows, B, 3, 16, T) -> per-lane sum_b b * S_b, (rows, 3, 16, T)."""
+    """buckets (rows, T, B, 3, 16) -> per-lane sum_b b * S_b, (rows, 3, 16, T),
+    in segments of 2^FOLD_LOG_SEGMENT[c] buckets."""
     if not _build.on_card(buckets, "msm_fold"):
         return msm_fold_plain(buckets, cc)
-    rows, B, _, _, T = buckets.shape
-    _build.check_tensor(buckets, (rows, B, 3, NLIMBS, T), "buckets", buckets.device)
+    rows, T, B, _, _ = buckets.shape
+    l = _fold_log_segment(B, None)
+    _build.check_tensor(buckets, (rows, T, B, 3, NLIMBS), "buckets", buckets.device)
     out = torch.empty((rows, 3, NLIMBS, T), dtype=torch.int32, device=buckets.device)
     lib = _build.load("msm_bucket", _SIG)
-    err = lib.msm_fold(buckets.data_ptr(), out.data_ptr(), rows, B, T, ctypes.byref(_consts(cc)),
+    err = lib.msm_fold(buckets.data_ptr(), out.data_ptr(), rows, B, T, l,
+                       ctypes.byref(_consts(cc)),
                        torch.cuda.current_stream(buckets.device).cuda_stream)
     _build.check(err, "msm_fold")
     LAUNCHES["msm_fold"] += 1

@@ -42,8 +42,8 @@ import torch
 
 from ..curves import Point
 from . import _build
-from .curve import CurveCtx, PointVec, padd, padd_mixed, pdouble
-from .field import NLIMBS, from_mont, ints_to_limbs, limbs_to_ints, sub_mod
+from .curve import CurveCtx, PointVec, add_affine_skip, add_skip, dbl_skip, is_identity, pick, put
+from .field import NLIMBS, from_mont, limbs_to_ints, sub_mod
 
 BUCKET_BITS = 15  # buckets by |e|, e in [-2^15, 2^15]
 SIDE_CAP = 128  # slots for |e| = 2^15 points per window
@@ -139,64 +139,6 @@ def prestage(canon: torch.Tensor, nw: int, classes) -> Tuple[torch.Tensor, torch
     return entries.to(torch.int32), gstart.to(torch.int32), overflow
 
 
-# ---------------- the skip rule, plain ----------------
-
-
-_zero_cache: dict = {}
-
-
-def _zero_reps(cc: CurveCtx, device) -> torch.Tensor:
-    """Limbs of the multiples of p below 2^256: the lazy forms of 0."""
-    key = (cc.fctx.p_int, torch.device(device))
-    if key not in _zero_cache:
-        p = cc.fctx.p_int
-        _zero_cache[key] = torch.as_tensor(
-            ints_to_limbs([k * p for k in range(4) if k * p < 1 << 256]), device=device)
-    return _zero_cache[key]
-
-
-def _is_identity(z: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
-    return (z.unsqueeze(-2) == _zero_reps(cc, z.device)).all(-1).any(-1)
-
-
-def _pick(pv: PointVec, idx) -> PointVec:
-    return PointVec(*(t[idx] for t in pv))
-
-
-def _put(pv: PointVec, idx, val: PointVec) -> None:
-    for t, v in zip(pv, val):
-        t[idx] = v
-
-
-def add_skip(a: PointVec, b: PointVec, cc: CurveCtx) -> PointVec:
-    """b the identity -> a; a the identity -> b; else the complete a + b."""
-    ia, ib = _is_identity(a.z, cc), _is_identity(b.z, cc)
-    out = PointVec(*(torch.where(ib[..., None], x, y) for x, y in zip(a, b)))
-    idx = (~(ia | ib)).nonzero(as_tuple=True)
-    if idx[0].numel():
-        _put(out, idx, padd(_pick(a, idx), _pick(b, idx), cc))
-    return out
-
-
-def dbl_skip(a: PointVec, cc: CurveCtx) -> PointVec:
-    out = PointVec(*(t.clone() for t in a))
-    idx = (~_is_identity(a.z, cc)).nonzero(as_tuple=True)
-    if idx[0].numel():
-        _put(out, idx, pdouble(_pick(a, idx), cc))
-    return out
-
-
-def add_affine_skip(a: PointVec, x: torch.Tensor, y: torch.Tensor, cc: CurveCtx) -> PointVec:
-    """Affine (x, y) into a; copied with Z = 1 where a is the identity."""
-    ia = _is_identity(a.z, cc)
-    one = cc.fctx.one(x.device).expand_as(x)
-    out = PointVec(x.clone(), y.clone(), one.clone())
-    idx = (~ia).nonzero(as_tuple=True)
-    if idx[0].numel():
-        _put(out, idx, padd_mixed(_pick(a, idx), x[idx], y[idx], cc))
-    return out
-
-
 def _base(px: torch.Tensor, py: torch.Tensor, src: torch.Tensor, neg: torch.Tensor, cc: CurveCtx):
     x = px[src]
     y = py[src]
@@ -226,7 +168,7 @@ def msm_sorted_accum_plain(entries, gstart, px, py, cc: CurveCtx) -> torch.Tenso
         e = entries[w, start[w, lane] + r].long()
         x, y = _base(px, py, e >> 6, (e >> 5) & 1, cc)
         flat = (w * LANES + lane) * KB + (e & (KB - 1))
-        _put(b, flat, add_affine_skip(_pick(b, flat), x, y, cc))
+        put(b, flat, add_affine_skip(pick(b, flat), x, y, cc))
     return _stack(b).reshape(nw, LANES, KB, 3, NLIMBS)
 
 
@@ -272,22 +214,22 @@ def _combine_plain(P: PointVec, T: Optional[PointVec], log_s: int, cc: CurveCtx)
     their sum and the identity as their weighted sum, as the kernel does."""
     G = P.x.shape[0]
     dev = P.x.device
-    occ = ~_is_identity(P.z, cc).all(1)
+    occ = ~is_identity(P.z, cc).all(1)
     if T is not None:
-        occ |= ~_is_identity(T.z, cc).all(1)
+        occ |= ~is_identity(T.z, cc).all(1)
     out_p = PointVec(*(t[:, 0].clone() for t in P))
     out_t = cc.identity_vec((G,), dev)
     g = occ.nonzero(as_tuple=True)[0]
     if not g.numel():
         return out_p, out_t
-    x = _pick(P, g)  # (m, 32)
+    x = pick(P, g)  # (m, 32)
     for d in (1, 2, 4, 8, 16):  # suffix scan
         head = add_skip(PointVec(*(t[:, : GROUP - d] for t in x)),
                         PointVec(*(t[:, d:] for t in x)), cc)
         x = PointVec(*(torch.cat([h, t[:, GROUP - d :]], 1) for h, t in zip(head, x)))
     m = g.numel()
     v = PointVec(*(torch.cat([i, t[:, 1:]], 1) for i, t in zip(cc.identity_vec((m, 1), dev), x)))
-    tc = _pick(T, g) if T is not None else cc.identity_vec((m, GROUP), dev)
+    tc = pick(T, g) if T is not None else cc.identity_vec((m, GROUP), dev)
     both = PointVec(*(torch.stack([a, b]) for a, b in zip(v, tc)))  # (2, m, 32)
     for d in (16, 8, 4, 2, 1):  # both trees at once
         head = add_skip(PointVec(*(t[:, :, :d] for t in both)),
@@ -296,8 +238,8 @@ def _combine_plain(P: PointVec, T: Optional[PointVec], log_s: int, cc: CurveCtx)
     vs = PointVec(*(t[0, :, 0] for t in both))
     for _ in range(log_s):
         vs = dbl_skip(vs, cc)
-    _put(out_p, g, PointVec(*(t[:, 0] for t in x)))
-    _put(out_t, g, add_skip(vs, PointVec(*(t[1, :, 0] for t in both)), cc))
+    put(out_p, g, PointVec(*(t[:, 0] for t in x)))
+    put(out_t, g, add_skip(vs, PointVec(*(t[1, :, 0] for t in both)), cc))
     return out_p, out_t
 
 
@@ -321,7 +263,7 @@ def msm_sorted_fold_plain(buckets, entries, gstart, px, py, cc: CurveCtx) -> tor
             break
         e = entries[w, beg[w] + i0 + j].long()
         x, y = _base(px, py, e >> 6, torch.ones_like(e), cc)
-        _put(acc, (w, j), add_affine_skip(_pick(acc, (w, j)), x, y, cc))
+        put(acc, (w, j), add_affine_skip(pick(acc, (w, j)), x, y, cc))
     for d in (16, 8, 4, 2, 1):
         head = add_skip(PointVec(*(t[:, :d] for t in acc)), PointVec(*(t[:, d : 2 * d] for t in acc)), cc)
         acc = PointVec(*(torch.cat([h, t[:, d:]], 1) for h, t in zip(head, acc)))

@@ -97,7 +97,7 @@ def test_bucket_stages_both_window_widths(c, T):
     db = msm_bases(jcurve, jpts).device_tables(n, "cpu")
     scal = limbs_tensor(np.stack([ints_to_limbs(r) for r in rows])).transpose(1, 2).contiguous()
     buckets = msm_bucket.msm_accum(scal, db.px, db.py, c, nwin, T, cc)
-    assert tuple(buckets.shape) == (M * nwin, 1 << c, 3, 16, T)
+    assert tuple(buckets.shape) == (M * nwin, T, 1 << c, 3, 16)
     parts = msm_bucket.msm_fold(buckets, cc)
     assert tuple(parts.shape) == (M * nwin, 3, 16, T)
     sums = msm_bucket.msm_lane_reduce(parts, cc)

@@ -27,7 +27,7 @@ from halo2_tpu_torch.curves import Vesta
 from halo2_tpu_torch.interop import curve_of, msm_bases, point
 from halo2_tpu_torch.ops import msm as msm_mod
 from halo2_tpu_torch.ops import msm_sorted as ms
-from halo2_tpu_torch.ops.curve import CurveCtx, padd, pdouble
+from halo2_tpu_torch.ops.curve import CurveCtx, _zero_reps, padd, pdouble
 from halo2_tpu_torch.ops.field import ints_to_limbs
 from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
 from halo2_tpu_torch.plonk.prover import create_proof
@@ -221,7 +221,7 @@ def test_skip_rule_and_doubling():
         [a.xy for a in cc.decode_points(padd(pv, pv, cc))]
     assert [a.xy for a in cc.decode_points(ms.dbl_skip(pv, cc))] == \
         [(p.mul(2)).xy for p in jpts]
-    zero = ms._zero_reps(cc, "cpu")
+    zero = _zero_reps(cc, "cpu")
     assert zero.shape[0] == 4  # 3p < 2^256 on Pasta
     ident = type(pv)(pv.x[:1].expand(4, 16), pv.y[:1].expand(4, 16), zero)
     a = type(pv)(*(t[1:2].expand(4, 16) for t in pv))
