@@ -26,8 +26,10 @@ counters set to 0 just before it and read just after:
   switched off, then once more with it on, has the same bytes (those two
   proofs are both warm, so their times compare); commit_lagrange(v) =
   commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
-  their plain versions and msm_host at n = 2^16 + 1, and the sorted and the
-  bucket MSM are timed on the same 2^16 + 1 scalars and bases.
+  their plain versions and msm_host at n = 2^16 + 1, kernels 5 and 6 also on
+  scalars below 2^127 with zero rows (windows 8-15 empty; that MSM against
+  the bucket MSM), and the sorted MSM, its pre-stage alone and the bucket
+  MSM are timed on the same 2^16 + 1 scalars and bases.
 * NTT=pallas: the k = 14 path again with every basis change on the
   mixed-radix plan (kernel 8, none of kernel 1), which must give the pinned
   VK and the proof bytes of the default route; then BenchCircuit at k = 10
@@ -179,7 +181,7 @@ def main() -> int:
     from halo2_tpu_torch.fields import Fp, FrBn
     from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
     from halo2_tpu_torch.ops import msm as msm_mod
-    from halo2_tpu_torch.ops.curve import CurveCtx
+    from halo2_tpu_torch.ops.curve import CurveCtx, PointVec
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont, limbs_to_ints
     from halo2_tpu_torch.ops.msm import MSMBases, msm_host
     from halo2_tpu_torch.ops.ntt import NttPlan
@@ -829,6 +831,26 @@ def main() -> int:
     require(got == want, "sorted MSM n=2^16+1 != msm_host")
     require(got == msm_bucket.msm_bucket_many(canon[None], bases, mont=False)[0],
             "sorted MSM n=2^16+1 != bucket MSM")
+    # scalars below 2^127 with zero rows: windows 8-15 empty (their buckets and
+    # sums the identity), window 7's digits non-negative and spread over all
+    # lanes (its limb below 2^15 - 1 carries nothing into window 8)
+    low = rand_canon((n,))
+    low[:, 7] %= 0x7FFF
+    low[:, 8:] = 0
+    low[:5] = 0
+    le, lg, lo = msm_sorted.prestage(low, 16, classes)
+    require(not bool(lo), "scalars below 2^127 overflowed the sorted MSM")
+    lbk = msm_sorted.msm_sorted_accum(le, lg, px, py, cc)
+    same("msm_sorted_accum", lbk, msm_sorted.msm_sorted_accum_plain(le, lg, px, py, cc), pctx,
+         "msm_sorted_accum (scalars below 2^127): kernel != plain")
+    lwk = msm_sorted.msm_sorted_fold(lbk, le, lg, px, py, cc)
+    same("msm_sorted_fold", lwk, msm_sorted.msm_sorted_fold_plain(lbk, le, lg, px, py, cc), pctx,
+         "msm_sorted_fold (scalars below 2^127): kernel != plain")
+    require(all(p.is_identity() for p in cc.decode_points(PointVec(lwk[8:, 0], lwk[8:, 1], lwk[8:, 2]))),
+            "empty windows 8-15 gave a window sum")
+    require(msm_sorted.msm_sorted(low, bases)
+            == msm_bucket.msm_bucket_many(low[None], bases, mont=False)[0],
+            "sorted MSM of scalars below 2^127 != bucket MSM")
     gcnt = (gstart[:, 1:] - gstart[:, :-1]).long()
     # The work sum_w 2^(16 w) sum_b b * S_b needs on this data, counted from
     # the digits: a point into an empty bucket is a copy, each later one a
@@ -865,6 +887,7 @@ def main() -> int:
     # scalars and bases, each ending in its host readback
     route_ms = {
         "sorted": time_ms(lambda: msm_sorted.msm_sorted(canon, bases)),
+        "sorted_prestage": time_ms(lambda: msm_sorted.prestage(canon, 16, classes)),
         "bucket": time_ms(lambda: msm_bucket.msm_bucket_many(canon[None], bases, mont=False)),
     }
     emit({"phase": "msm_routes", "n": n, "ms": route_ms,

@@ -327,3 +327,49 @@ __device__ __forceinline__ Pt shfl_down_pt(const Pt& a, int d, int width = 32) {
   }
   return r;
 }
+
+// 16 contiguous limbs as 4 loads or stores of 16 bytes (the address 16-byte
+// aligned), and a point's 48 limbs (a bucket: 192 contiguous bytes).
+__device__ __forceinline__ Fe fe_load16_v(const int4* s) {
+  Fe r;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int4 v = s[q];
+    r.v[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    r.v[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store16_v(int4* d, const Fe& a) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t lo = a.v[2 * q], hi = a.v[2 * q + 1];
+    d[q] = make_int4((int)(lo & 0xFFFFu), (int)(lo >> 16), (int)(hi & 0xFFFFu), (int)(hi >> 16));
+  }
+}
+
+__device__ __forceinline__ Pt bucket_load(const int32_t* src) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  Pt r;
+  r.x = fe_load16_v(s);
+  r.y = fe_load16_v(s + 4);
+  r.z = fe_load16_v(s + 8);
+  return r;
+}
+
+__device__ __forceinline__ void bucket_store(int32_t* dst, const Pt& p) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  fe_store16_v(d, p.x);
+  fe_store16_v(d + 4, p.y);
+  fe_store16_v(d + 8, p.z);
+}
+
+// The folds' additions (kernels 3 and 6) are calls, not inlined: a segment
+// loop, a scan and a tree would otherwise inline several complete additions
+// and a doubling into one kernel, which then runs out of registers and spills.
+__device__ __noinline__ Pt fold_add(const Pt& a, const Pt& b, const FieldConsts& k) {
+  return add_skip(a, b, k);
+}
+
+__device__ __noinline__ Pt fold_dbl(const Pt& a, const FieldConsts& k) { return dbl_skip(a, k); }

@@ -86,42 +86,6 @@ __device__ __forceinline__ void pt_store(int32_t* base, long long stride_coord,
   fe_store16(base + 2 * stride_coord, stride_limb, p.z);
 }
 
-// 16 contiguous limbs as 4 loads or stores of 16 bytes, and a bucket's 48.
-__device__ __forceinline__ Fe fe_load16_v(const int4* s) {
-  Fe r;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int4 v = s[q];
-    r.v[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
-    r.v[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
-  }
-  return r;
-}
-
-__device__ __forceinline__ void fe_store16_v(int4* d, const Fe& a) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t lo = a.v[2 * q], hi = a.v[2 * q + 1];
-    d[q] = make_int4((int)(lo & 0xFFFFu), (int)(lo >> 16), (int)(hi & 0xFFFFu), (int)(hi >> 16));
-  }
-}
-
-__device__ __forceinline__ Pt bucket_load(const int32_t* src) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  Pt r;
-  r.x = fe_load16_v(s);
-  r.y = fe_load16_v(s + 4);
-  r.z = fe_load16_v(s + 8);
-  return r;
-}
-
-__device__ __forceinline__ void bucket_store(int32_t* dst, const Pt& p) {
-  int4* d = reinterpret_cast<int4*>(dst);
-  fe_store16_v(d, p.x);
-  fe_store16_v(d + 4, p.y);
-  fe_store16_v(d + 8, p.z);
-}
-
 // In-place exclusive scan of a[0 .. n) by the whole block; returns the total.
 __device__ uint32_t block_exclusive_scan(uint32_t* a, int n, uint32_t* warp_sums) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -249,15 +213,6 @@ accum_kernel(const int32_t* __restrict__ scal, const int32_t* __restrict__ px,
     }
   }
 }
-
-// The fold's additions are calls, not inlined: the segment loop, the scan and
-// the tree would otherwise inline six complete additions and a doubling into
-// one kernel, which then runs out of registers and spills.
-__device__ __noinline__ Pt fold_add(const Pt& a, const Pt& b, const FieldConsts& k) {
-  return add_skip(a, b, k);
-}
-
-__device__ __noinline__ Pt fold_dbl(const Pt& a, const FieldConsts& k) { return dbl_skip(a, k); }
 
 __global__ void __launch_bounds__(FOLD_THREADS)
 fold_kernel(const int32_t* __restrict__ buckets, int32_t* __restrict__ parts, int rows, int B,

@@ -223,13 +223,25 @@ def put(pv: PointVec, idx, val: PointVec) -> None:
         t[idx] = v
 
 
+def _distinct(fn, cols) -> PointVec:
+    """fn(*cols) over (m, 16) tensors, computed once per distinct row of the
+    columns taken together: the sorted fold's suffix sums repeat one value
+    over every run of empty segments, so its plain version would otherwise
+    add and double the same points many times over."""
+    uniq, inv = torch.unique(torch.cat(cols, 1), dim=0, return_inverse=True)
+    if uniq.shape[0] == cols[0].shape[0]:
+        return fn(*cols)
+    return PointVec(*(t[inv] for t in fn(*(c.contiguous() for c in uniq.split(NLIMBS, 1)))))
+
+
 def add_skip(a: PointVec, b: PointVec, cc: CurveCtx) -> PointVec:
     """b the identity -> a; a the identity -> b; else the complete a + b."""
     ia, ib = is_identity(a.z, cc), is_identity(b.z, cc)
     out = PointVec(*(torch.where(ib[..., None], x, y) for x, y in zip(a, b)))
     idx = (~(ia | ib)).nonzero(as_tuple=True)
     if idx[0].numel():
-        put(out, idx, padd(pick(a, idx), pick(b, idx), cc))
+        put(out, idx, _distinct(lambda *c: padd(PointVec(*c[:3]), PointVec(*c[3:]), cc),
+                                pick(a, idx) + pick(b, idx)))
     return out
 
 
@@ -237,7 +249,7 @@ def dbl_skip(a: PointVec, cc: CurveCtx) -> PointVec:
     out = PointVec(*(t.clone() for t in a))
     idx = (~is_identity(a.z, cc)).nonzero(as_tuple=True)
     if idx[0].numel():
-        put(out, idx, pdouble(pick(a, idx), cc))
+        put(out, idx, _distinct(lambda *c: pdouble(PointVec(*c), cc), pick(a, idx)))
     return out
 
 

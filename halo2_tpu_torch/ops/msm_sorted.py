@@ -7,19 +7,26 @@ Counterpart of `halo2_tpu/ops/msm_sorted.py`, Pippenger's bucket method
   limb w to a digit e_w in [-2^15, 2^15] with a carry into the next limb;
   the bucket is |e_w| and the sign negates the point's y.
 * **Pre-stage** (`prestage`, torch sort and gather; XLA code in the JAX
-  package, not a Pallas kernel): per window, the points are sorted by lane
-  (lane l owns the KB = 32 buckets [KB l, KB l + KB), W = 1024 lanes), zero
-  digits sort past the side lane and are discarded, and |e| = 2^15 forms a
-  side list. Lane counts above the Poisson capacities of `_cap_classes`, or a
-  side list above SIDE_CAP, set the overflow flag: the same MSMs overflow as
-  in the JAX package, and `ops/msm.py` sends them to the unsorted bucket MSM.
+  package, not a Pallas kernel): per window, the points are sorted by bucket
+  and, within a bucket, by point index (lane l owns the KB = 32 buckets
+  [KB l, KB l + KB), W = 1024 lanes, so the list is also sorted by lane),
+  zero digits sort past the side lane and are discarded, and |e| = 2^15
+  forms a side list. Lane counts above the Poisson capacities of
+  `_cap_classes`, or a side list above SIDE_CAP, set the overflow flag: the
+  same MSMs overflow as in the JAX package, and `ops/msm.py` sends them to
+  the unsorted bucket MSM.
 * Three stages, each a hand-written CUDA kernel (`csrc/msm_sorted.cu`) with
   its plain torch version beside it:
-  1. `msm_sorted_accum` (replaces `_accum_fn`): each (window, lane) adds its
-     sorted points into its KB buckets with the complete mixed addition.
+  1. `msm_sorted_accum` (replaces `_accum_fn`): a block per (window, G
+     lanes) cuts its sorted entries into runs of whole buckets, one a
+     thread, and sums each bucket in registers from the identity in
+     ascending point index (so the buckets are the first port's, bit for
+     bit); every bucket is written once, empty ones as the identity.
   2. `msm_sorted_fold` (replaces `_fold_fn`): per window sum_b b * S_b over
-     the 2^15 buckets by 32-way lane-suffix scans on three levels (buckets of
-     a lane, lanes of a group, groups of a window), plus 2^15 * side sum.
+     the 2^15 buckets plus 2^15 * side sum, by running sums over segments of
+     2^l buckets (the side list is bucket 2^15 of the top segment), a
+     suffix scan and a tree per block, and the same formula over the blocks
+     of a window in a second pass.
   3. `msm_sorted_horner` (replaces `_horner_fn`): sum_w 2^(16 w) * win_w.
 
 Every addition follows one skip rule (an identity operand is not added; a
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -49,16 +56,22 @@ BUCKET_BITS = 15  # buckets by |e|, e in [-2^15, 2^15]
 SIDE_CAP = 128  # slots for |e| = 2^15 points per window
 LANES = 1024  # W: lanes per window
 KB = (1 << BUCKET_BITS) // LANES  # buckets per lane, 32
-GROUP = 32  # children per fold level: KB = LANES / GROUP = GROUP = 32
-KEY_BITS = 21  # the sort key is lane << 21 | index
+KEY_BITS = 21  # the sort key is |e| << 21 | index
+# Launch geometry, the fastest of a sweep on an H100 at n = 2^16 + 1
+# (`tools/msm_ab.py --sorted --sweep`; PERF.md): kernel 5 takes
+# ACCUM_GEOMETRY = (lanes, threads) a block, kernel 6 FOLD_GEOMETRY = (l,
+# threads), segments of 2^l buckets, one a thread. msm_sorted_fold_plain reads
+# FOLD_GEOMETRY too, since the fold's additions depend on it.
+ACCUM_GEOMETRY = (32, 128)
+FOLD_GEOMETRY = (4, 64)
 LAUNCHES = {"msm_sorted_accum": 0, "msm_sorted_fold": 0, "msm_sorted_horner": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {
-    "msm_sorted_accum": (_P, _P, _P, _P, _P, _I, _L, _P, _P),
-    "msm_sorted_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _P, _P),
+    "msm_sorted_accum": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P),
+    "msm_sorted_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P),
     "msm_sorted_horner": (_P, _P, _I, _P, _P),
 }
 
@@ -96,7 +109,7 @@ def _cap_classes(n: int, w_lanes: int, kb: int, q: int):
     return ((0, 15, cap_uni), (15, 1, cap_top))
 
 
-# ---------------- pre-stage: recode, sort by lane ----------------
+# ---------------- pre-stage: recode, sort by bucket ----------------
 
 
 def _recode_signed(limbs: torch.Tensor, nw: int) -> torch.Tensor:
@@ -115,21 +128,23 @@ def _recode_signed(limbs: torch.Tensor, nw: int) -> torch.Tensor:
 
 def prestage(canon: torch.Tensor, nw: int, classes) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(n, 16) canonical scalar limbs -> entries (nw, n) int32, the points of
-    each window sorted by lane as src << 6 | (e < 0) << 5 | |e| mod KB;
-    gstart (nw, W + 2) int32, the first sorted position of each lane, the
-    side list at [W, W + 1); and the 0-d overflow flag. torch has no uint32
-    sort, so the key (lane << 21 | index) is int64."""
+    each window sorted by bucket |e| and then by index, as src << 6 |
+    (e < 0) << 5 | |e| mod KB; gstart (nw, W + 2) int32, the first sorted
+    position of each lane, the side list at [W, W + 1); and the 0-d overflow
+    flag. torch has no uint32 sort, so the key (|e| << 21 | index, below
+    2^37) is int64."""
     n = canon.shape[0]
     dev = canon.device
     e = _recode_signed(canon, nw).long()
     bucket = e.abs()
     # zero digits sort to a discard lane past the side lane: real columns are
     # often mostly zeros and would overflow lane 0, but add nothing
-    lane = torch.where(bucket == 0, LANES + 1, bucket // KB)
-    key = torch.sort((lane << KEY_BITS) | torch.arange(n, device=dev), dim=1).values
+    bucket = torch.where(bucket == 0, (LANES + 1) * KB, bucket)
+    key = torch.sort((bucket << KEY_BITS) | torch.arange(n, device=dev), dim=1).values
     order = key & ((1 << KEY_BITS) - 1)
     queries = torch.arange(LANES + 2, device=dev).expand(nw, LANES + 2).contiguous()
-    gstart = torch.searchsorted((key >> KEY_BITS).contiguous(), queries)
+    lane_shift = KEY_BITS + KB.bit_length() - 1  # key >> lane_shift = |e| // KB
+    gstart = torch.searchsorted((key >> lane_shift).contiguous(), queries)
     gcnt = gstart[:, 1 : LANES + 1] - gstart[:, :LANES]
     side_cnt = gstart[:, LANES + 1] - gstart[:, LANES]
     caps = torch.as_tensor([cap for (_, cnt, cap) in classes for _ in range(cnt)], device=dev)
@@ -158,6 +173,8 @@ def _stack(pv: PointVec) -> torch.Tensor:
 
 
 def msm_sorted_accum_plain(entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    """Each bucket from the identity, its points in the order of the lane's
+    run (ascending index within a bucket): the kernel's additions."""
     nw, _ = entries.shape
     dev = entries.device
     b = cc.identity_vec((nw * LANES * KB,), dev)
@@ -180,10 +197,13 @@ def msm_sorted_accum(entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
     nw, n = entries.shape
     dev = entries.device
     _check_inputs(entries, gstart, px, py)
+    lanes, threads = ACCUM_GEOMETRY
+    if not 1 <= lanes <= 32 or lanes & (lanes - 1) or threads % 32 or not 32 <= threads <= 128:
+        raise ValueError(f"msm_sorted_accum: geometry {ACCUM_GEOMETRY} not (2^i <= 32, 32-128 threads)")
     out = torch.empty((nw, LANES, KB, 3, NLIMBS), dtype=torch.int32, device=dev)
     lib = _build.load("msm_sorted", _SIG)
     err = lib.msm_sorted_accum(entries.data_ptr(), gstart.data_ptr(), px.data_ptr(), py.data_ptr(),
-                               out.data_ptr(), nw, n, ctypes.byref(_consts(cc)),
+                               out.data_ptr(), nw, n, lanes, threads, ctypes.byref(_consts(cc)),
                                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "msm_sorted_accum")
     LAUNCHES["msm_sorted_accum"] += 1
@@ -203,74 +223,129 @@ def _check_inputs(entries, gstart, px, py) -> None:
     _build.check_tensor(py, tuple(px.shape), "py", dev)
     if px.shape[0] < n:
         raise ValueError(f"msm_sorted: {n} scalars but {px.shape[0]} bases")
+    if px.data_ptr() % 16 or py.data_ptr() % 16:
+        raise ValueError("msm_sorted: the base tables must be 16-byte aligned (vector loads)")
 
 
 # ---------------- kernel 6: fold ----------------
 
 
-def _combine_plain(P: PointVec, T: Optional[PointVec], log_s: int, cc: CurveCtx):
-    """(G, 32) children -> (sum_j P_j, 2^log_s * sum_j j * P_j + sum_j T_j),
-    each (G,); T None is the identity. Groups with no point keep child 0 as
-    their sum and the identity as their weighted sum, as the kernel does."""
-    G = P.x.shape[0]
-    dev = P.x.device
-    occ = ~is_identity(P.z, cc).all(1)
-    if T is not None:
-        occ |= ~is_identity(T.z, cc).all(1)
-    out_p = PointVec(*(t[:, 0].clone() for t in P))
-    out_t = cc.identity_vec((G,), dev)
-    g = occ.nonzero(as_tuple=True)[0]
-    if not g.numel():
-        return out_p, out_t
-    x = pick(P, g)  # (m, 32)
-    for d in (1, 2, 4, 8, 16):  # suffix scan
-        head = add_skip(PointVec(*(t[:, : GROUP - d] for t in x)),
-                        PointVec(*(t[:, d:] for t in x)), cc)
-        x = PointVec(*(torch.cat([h, t[:, GROUP - d :]], 1) for h, t in zip(head, x)))
-    m = g.numel()
-    v = PointVec(*(torch.cat([i, t[:, 1:]], 1) for i, t in zip(cc.identity_vec((m, 1), dev), x)))
-    tc = pick(T, g) if T is not None else cc.identity_vec((m, GROUP), dev)
-    both = PointVec(*(torch.stack([a, b]) for a, b in zip(v, tc)))  # (2, m, 32)
-    for d in (16, 8, 4, 2, 1):  # both trees at once
-        head = add_skip(PointVec(*(t[:, :, :d] for t in both)),
-                        PointVec(*(t[:, :, d : 2 * d] for t in both)), cc)
-        both = PointVec(*(torch.cat([h, t[:, :, d:]], 2) for h, t in zip(head, both)))
-    vs = PointVec(*(t[0, :, 0] for t in both))
-    for _ in range(log_s):
-        vs = dbl_skip(vs, cc)
-    put(out_p, g, PointVec(*(t[:, 0] for t in x)))
-    put(out_t, g, add_skip(vs, PointVec(*(t[1, :, 0] for t in both)), cc))
-    return out_p, out_t
+def _fold_geometry() -> Tuple[int, int]:
+    """FOLD_GEOMETRY, checked: whole warps, at most 256 threads a block, and
+    1-32 blocks a window (the second pass is one warp a window)."""
+    l, threads = FOLD_GEOMETRY
+    segs = (1 << BUCKET_BITS) >> l
+    if threads % 32 or not 32 <= threads <= 256 or segs % threads or not 1 <= segs // threads <= 32:
+        raise ValueError(f"msm_sorted_fold: geometry {FOLD_GEOMETRY} gives no 1-32 blocks a window")
+    return l, threads
 
 
-def _groups(pv: PointVec) -> PointVec:
-    return PointVec(*(t.reshape(-1, GROUP, NLIMBS) for t in pv))
+def _side_sums(entries, gstart, px, py, cc: CurveCtx) -> PointVec:
+    """(nw,) sum of each window's side list (at most SIDE_CAP points, y
+    negated), from the identity in slot order."""
+    nw = entries.shape[0]
+    beg = gstart[:, LANES].long()
+    cnt = (gstart[:, LANES + 1].long() - beg).clamp(max=SIDE_CAP)
+    acc = cc.identity_vec((nw,), entries.device)
+    for t in range(int(cnt.max())):
+        w = (cnt > t).nonzero(as_tuple=True)[0]
+        e = entries[w, beg[w] + t].long()
+        x, y = _base(px, py, e >> 6, torch.ones_like(e), cc)
+        put(acc, w, add_affine_skip(pick(acc, w), x, y, cc))
+    return acc
+
+
+def _warp_scan(x: PointVec, cc: CurveCtx) -> PointVec:
+    """Suffix sums over the last point axis (32 lanes), x_j += x_{j + d} for
+    d = 1, 2, 4, 8, 16 where j + d < 32: the kernels' shuffle scan."""
+    for d in (1, 2, 4, 8, 16):
+        head = add_skip(PointVec(*(t[..., : 32 - d, :] for t in x)),
+                        PointVec(*(t[..., d:, :] for t in x)), cc)
+        x = PointVec(*(torch.cat([h, t[..., 32 - d :, :]], -2) for h, t in zip(head, x)))
+    return x
+
+
+def _warp_tree(x: PointVec, cc: CurveCtx) -> PointVec:
+    """Lane 0's sum over the last point axis (32 lanes): x_j += x_{j + d} for
+    d = 16, 8, 4, 2, 1 where j < d, the kernels' shuffle tree."""
+    for d in (16, 8, 4, 2, 1):
+        x = add_skip(PointVec(*(t[..., :d, :] for t in x)),
+                     PointVec(*(t[..., d : 2 * d, :] for t in x)), cc)
+    return PointVec(*(t[..., 0, :] for t in x))
+
+
+def _weigh(tot: PointVec, run: PointVec, log_w: int, cc: CurveCtx) -> PointVec:
+    """sum_j tot_j + 2^log_w sum_{j >= 1} U_j with U the suffix sums of run,
+    over 32 lanes on the last point axis: scan, lane 0 dropped, log_w
+    doublings, one addition, tree."""
+    u = _warp_scan(run, cc)
+    idv = cc.identity_vec(u.x.shape[:-2] + (1,), u.x.device)
+    u = PointVec(*(torch.cat([i, t[..., 1:, :]], -2) for i, t in zip(idv, u)))
+    for _ in range(log_w):
+        u = dbl_skip(u, cc)
+    return _warp_tree(add_skip(tot, u, cc), cc)
 
 
 def msm_sorted_fold_plain(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
+    """The kernel's additions in the kernel's order, with segments, warps and
+    blocks as batch dimensions; segments without a point and blocks that are
+    all the exact identity (which give the exact identity) are skipped."""
     nw = buckets.shape[0]
     dev = buckets.device
-    p1, t1 = _combine_plain(_points(buckets.reshape(nw * LANES, KB, 3, NLIMBS)), None, 0, cc)
-    p2, t2 = _combine_plain(_groups(p1), _groups(t1), 5, cc)
-    _, t3 = _combine_plain(_groups(p2), _groups(t2), 10, cc)
-    # side list: slot i on thread i mod 32, in slot order, then a tree
-    beg = gstart[:, LANES].long()
-    cnt = (gstart[:, LANES + 1].long() - beg).clamp(max=SIDE_CAP)
-    acc = cc.identity_vec((nw, GROUP), dev)
-    for i0 in range(0, SIDE_CAP, GROUP):
-        w, j = (i0 + torch.arange(GROUP, device=dev)[None, :] < cnt[:, None]).nonzero(as_tuple=True)
-        if not w.numel():
-            break
-        e = entries[w, beg[w] + i0 + j].long()
-        x, y = _base(px, py, e >> 6, torch.ones_like(e), cc)
-        put(acc, (w, j), add_affine_skip(pick(acc, (w, j)), x, y, cc))
-    for d in (16, 8, 4, 2, 1):
-        head = add_skip(PointVec(*(t[:, :d] for t in acc)), PointVec(*(t[:, d : 2 * d] for t in acc)), cc)
-        acc = PointVec(*(torch.cat([h, t[:, d:]], 1) for h, t in zip(head, acc)))
-    side = PointVec(*(t[:, 0] for t in acc))
-    for _ in range(BUCKET_BITS):
-        side = dbl_skip(side, cc)
-    return _stack(add_skip(t3, side, cc))  # (nw, 3, 16)
+    l, threads = _fold_geometry()
+    L, J = 1 << l, (1 << BUCKET_BITS) >> l  # segment length, segments a window
+    nbk, nwarp = J // threads, threads // 32
+    seg = _points(buckets.reshape(nw, J, L, 3, NLIMBS))
+    side = _side_sums(entries, gstart, px, py, cc)
+    # first pass, segments: running sum and total from the top down; the side
+    # list is bucket 2^15 = r = L of each window's top segment
+    run = cc.identity_vec((nw, J), dev)
+    tot = cc.identity_vec((nw, J), dev)
+    occ = ~is_identity(seg.z, cc).all(-1)
+    occ[:, J - 1] |= ~is_identity(side.z, cc)
+    w, j = occ.nonzero(as_tuple=True)
+    if w.numel():
+        idm = cc.identity_vec((w.numel(),), dev)
+        top = (j == J - 1)[:, None]
+        r_run = add_skip(idm, PointVec(*(torch.where(top, s[w], i) for s, i in zip(side, idm))), cc)
+        r_tot = add_skip(idm, r_run, cc)
+        for r in range(L - 1, 0, -1):
+            r_run = add_skip(r_run, PointVec(*(t[w, j, r] for t in seg)), cc)
+            r_tot = add_skip(r_tot, r_run, cc)
+        put(run, (w, j), add_skip(r_run, PointVec(*(t[w, j, 0] for t in seg)), cc))
+        put(tot, (w, j), r_tot)
+    # first pass, blocks of `threads` segments in warps of 32: (T, Sum) each
+    blk_run = PointVec(*(t.reshape(nw * nbk, nwarp, 32, NLIMBS) for t in run))
+    blk_tot = PointVec(*(t.reshape(nw * nbk, nwarp, 32, NLIMBS) for t in tot))
+    T = cc.identity_vec((nw * nbk,), dev)
+    S = cc.identity_vec((nw * nbk,), dev)
+    idl = cc.identity_vec((), dev)
+    g = torch.stack([(t != i).flatten(1).any(1) for t, i in zip(blk_run + blk_tot, idl + idl)])
+    g = g.any(0).nonzero(as_tuple=True)[0]
+    if g.numel():
+        x = _warp_scan(pick(blk_run, g), cc)  # (m, nwarp, 32)
+        above = [cc.identity_vec((g.numel(),), dev)]  # sums of the warps above, top down
+        for k in range(nwarp - 1, 0, -1):
+            above.insert(0, add_skip(above[0], PointVec(*(t[:, k, 0] for t in x)), cc))
+        above = PointVec(*(torch.stack(c, 1)[:, :, None].expand(-1, -1, 32, -1)
+                           for c in zip(*above)))
+        u = add_skip(x, above, cc)  # U_i over the block
+        put(S, g, PointVec(*(t[:, 0, 0] for t in u)))
+        u = PointVec(*(t.clone() for t in u))
+        put(u, (slice(None), 0, 0), cc.identity_vec((g.numel(),), dev))
+        for _ in range(l):
+            u = dbl_skip(u, cc)
+        r = _warp_tree(add_skip(pick(blk_tot, g), u, cc), cc)  # (m, nwarp)
+        acc = PointVec(*(t[:, 0] for t in r))
+        for k in range(1, nwarp):
+            acc = add_skip(acc, PointVec(*(t[:, k] for t in r)), cc)
+        put(T, g, acc)
+    # second pass: the blocks of a window, padded to a warp, at weight threads * L
+    pad = cc.identity_vec((nw, 32 - nbk), dev)
+    tw, sw = (PointVec(*(torch.cat([t.reshape(nw, nbk, NLIMBS), p], 1) for t, p in zip(v, pad)))
+              for v in (T, S))
+    lw = (threads << l).bit_length() - 1
+    return _stack(_weigh(tw, sw, lw, cc))  # (nw, 3, 16)
 
 
 def msm_sorted_fold(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Tensor:
@@ -282,12 +357,16 @@ def msm_sorted_fold(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Ten
     dev = buckets.device
     _check_inputs(entries, gstart, px, py)
     _build.check_tensor(buckets, (nw, LANES, KB, 3, NLIMBS), "buckets", dev)
-    scratch = torch.empty((nw * (LANES + GROUP + 1) * 2, 3, NLIMBS), dtype=torch.int32, device=dev)
+    l, threads = _fold_geometry()
+    nbk = ((1 << BUCKET_BITS) >> l) // threads
+    part = torch.empty((nw, nbk, 2, 3, NLIMBS), dtype=torch.int32, device=dev)
     out = torch.empty((nw, 3, NLIMBS), dtype=torch.int32, device=dev)
+    if buckets.data_ptr() % 16:
+        raise ValueError("msm_sorted_fold: the bucket tensor must be 16-byte aligned")
     lib = _build.load("msm_sorted", _SIG)
     err = lib.msm_sorted_fold(buckets.data_ptr(), entries.data_ptr(), gstart.data_ptr(),
-                              px.data_ptr(), py.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                              nw, n, ctypes.byref(_consts(cc)),
+                              px.data_ptr(), py.data_ptr(), part.data_ptr(), out.data_ptr(),
+                              nw, n, l, threads, ctypes.byref(_consts(cc)),
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "msm_sorted_fold")
     LAUNCHES["msm_sorted_fold"] += 1

@@ -1,8 +1,9 @@
-"""Times the bucket MSM's kernels 2-4 and the BenchCircuit proofs of one tree
-of this repository, so that two trees (a parent commit unpacked beside the
-checkout, and the checkout) can be read on one card in one run.
+"""Times the bucket MSM's kernels 2-4, the sorted MSM's kernels 5-7 and the
+BenchCircuit proofs of one tree of this repository, so that two trees (a
+parent commit unpacked beside the checkout, and the checkout) can be read on
+one card in one run.
 
-    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--proofs]
+    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted [--sweep]] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -15,8 +16,21 @@ shape and, with `--proofs`, per proof:
   first port's (rows, B, 3, 16, T) order whatever the tree's layout) and
   of the window sums as affine points (the group elements kernels 3 and 4
   give, whatever their projective coordinates);
+- with `--sorted`, in place of those two shapes: the sorted MSM at
+  n = 2^16 + 1 on the k = 16 params' bases (g ++ [w]), for uniform scalars
+  below q with the edge scalars in the first rows, and for scalars below
+  2^127 (windows 8-15 empty) with zero rows: the median CUDA-event time of
+  kernels 5, 6 and 7 and of the pre-stage, the sorted route and the bucket
+  route (each route ending in its host readback), the sha256 of kernel 5's
+  bucket tensor (nw, W, KB, 3, 16) and of kernel 6's window sums as affine
+  points, whether kernels 5 and 6 equal their plain versions (canonical
+  values) and whether the sorted MSM equals the bucket MSM; with `--sweep`
+  (trees that have ACCUM_GEOMETRY and FOLD_GEOMETRY), kernels 5 and 6 timed
+  at each geometry of ACCUM_SWEEP and FOLD_SWEEP on the uniform scalars,
+  each checked against the default geometry's buckets (bit for bit) or
+  window sums (as affine points);
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
-  the sha256 of the proof, prove seconds, and kernels 2-4's launches and
+  the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
 
 It needs a CUDA device and exits non-zero without one.
@@ -37,6 +51,14 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("msm_accum", "msm_fold", "msm_lane_reduce")
+SORTED_KERNELS = ("msm_sorted_accum", "msm_sorted_fold", "msm_sorted_horner")
+# (lanes, threads) a block of kernel 5: from about a bucket a thread (1, 32)
+# to runs of about 16 points (32 lanes, 128 threads)
+ACCUM_SWEEP = ((1, 32), (2, 64), (4, 64), (4, 128), (8, 64), (8, 128), (16, 64), (16, 128),
+               (32, 64), (32, 128))
+# (l, threads) of kernel 6: segments of 2^l buckets, 1-32 blocks a window
+FOLD_SWEEP = ((2, 256), (3, 128), (3, 256), (4, 64), (4, 128), (4, 256), (5, 32), (5, 64),
+              (5, 128))
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -59,9 +81,89 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def sorted_section(params16, msm_bucket, msm_sorted, dev, rng, sweep: bool = False,
+                   n: int = (1 << 16) + 1) -> None:
+    """Kernels 5-7, the pre-stage and both routes at n points (see the
+    module's docstring); the modules are the tree's own."""
+    from halo2_tpu_torch.ops.curve import PointVec
+    from halo2_tpu_torch.ops.field import from_mont
+
+    bases = params16._bases_g  # g ++ [w]
+    cc = bases.cc
+
+    def affine(wk):
+        return [p.xy for p in cc.decode_points(PointVec(wk[:, 0], wk[:, 1], wk[:, 2]))]
+
+    def canon_equal(a, b):
+        return torch.equal(from_mont(a.reshape(-1, 16), cc.fctx), from_mont(b.reshape(-1, 16), cc.fctx))
+
+    q = bases.curve.SCALAR.MODULUS
+    px, py = bases.device_rows(dev)
+    classes = msm_sorted._cap_classes(n, msm_sorted.LANES, msm_sorted.KB, q)
+    edge = [0, 1, q - 1, 1 << 15, ((1 << 15) << 48) % q, (1 << 16) - 1]
+    uniform = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    uniform[:, 15] &= 0x3FFF  # below q
+    uniform[: len(edge)] = np.frombuffer(
+        b"".join(v.to_bytes(32, "little") for v in edge), dtype="<u2").reshape(len(edge), 16)
+    low = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    low[:, 7] %= 0x7FFF  # window 7 uniform over its lanes, no carry into window 8
+    low[:, 8:] = 0
+    low[:5] = 0
+    for label, limbs in (("uniform", uniform), ("below_2^127", low)):
+        canon = torch.as_tensor(limbs.astype(np.int32), device=dev)
+        entries, gstart, overflow = msm_sorted.prestage(canon, 16, classes)
+
+        def accum():
+            return msm_sorted.msm_sorted_accum(entries, gstart, px, py, cc)
+
+        def fold():
+            return msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, cc)
+
+        bk = accum()
+        wk = fold()
+        wins = affine(wk)
+        got = msm_sorted.msm_sorted(canon, bases)
+        row = {"sorted_shape": label, "n": n, "overflow": bool(overflow),
+               "buckets_sha256": hashlib.sha256(bk.contiguous().cpu().numpy().tobytes()).hexdigest(),
+               "window_sums_affine_sha256": hashlib.sha256(repr(wins).encode()).hexdigest(),
+               "msm_affine": repr(got.xy),
+               "kernels_equal_plain": {
+                   "msm_sorted_accum": canon_equal(
+                       bk, msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, cc)),
+                   "msm_sorted_fold": canon_equal(
+                       wk, msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, cc))},
+               "equals_bucket_msm": got == msm_bucket.msm_bucket_many(canon[None], bases, mont=False)[0]}
+        if label == "uniform":
+            row["ms"] = {
+                "prestage": time_ms(lambda: msm_sorted.prestage(canon, 16, classes)),
+                "msm_sorted_accum": time_ms(accum),
+                "msm_sorted_fold": time_ms(fold),
+                "msm_sorted_horner": time_ms(lambda: msm_sorted.msm_sorted_horner(wk, cc)),
+                "route_sorted": time_ms(lambda: msm_sorted.msm_sorted(canon, bases)),
+                "route_bucket": time_ms(lambda: msm_bucket.msm_bucket_many(canon[None], bases, mont=False)),
+            }
+        emit(row)
+        if sweep and label == "uniform" and hasattr(msm_sorted, "FOLD_GEOMETRY"):
+            default = msm_sorted.ACCUM_GEOMETRY, msm_sorted.FOLD_GEOMETRY
+            try:
+                for geo in ACCUM_SWEEP:
+                    msm_sorted.ACCUM_GEOMETRY = geo
+                    emit({"sweep": "msm_sorted_accum", "lanes_threads": geo,
+                          "same_buckets": torch.equal(accum(), bk), "ms": time_ms(accum)})
+                msm_sorted.ACCUM_GEOMETRY = default[0]
+                for geo in FOLD_SWEEP:
+                    msm_sorted.FOLD_GEOMETRY = geo
+                    emit({"sweep": "msm_sorted_fold", "l_threads": geo,
+                          "same_window_sums": affine(fold()) == wins, "ms": time_ms(fold)})
+            finally:
+                msm_sorted.ACCUM_GEOMETRY, msm_sorted.FOLD_GEOMETRY = default
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
+    ap.add_argument("--sorted", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--proofs", action="store_true")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -72,7 +174,7 @@ def main(argv=None) -> int:
     import halo2_tpu_torch
     from halo2_tpu_torch.circuits import bench_circuit_for_k
     from halo2_tpu_torch.curves import Vesta
-    from halo2_tpu_torch.ops import msm_bucket
+    from halo2_tpu_torch.ops import msm_bucket, msm_sorted
     from halo2_tpu_torch.ops.curve import PointVec
     from halo2_tpu_torch.ops.msm import MSMBases
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
@@ -89,10 +191,15 @@ def main(argv=None) -> int:
 
     params14 = ParamsIPA.cached(Vesta, 14, device=dev)
     rng = np.random.default_rng(20261017)
-    for label, n, M, pts in (
+    bucket_shapes = (
         ("k14_commit", (1 << 14) + 1, 3, params14.g + [params14.w]),
         ("c8_M2", 1 << 15, 2, params14.g + params14.g_lagrange),
-    ):
+    )
+    if ns.sorted:
+        sorted_section(ParamsIPA.cached(Vesta, 16, device=dev), msm_bucket, msm_sorted, dev, rng,
+                       ns.sweep)
+        bucket_shapes = ()
+    for label, n, M, pts in bucket_shapes:
         bases = MSMBases(Vesta, pts, dev)
         cc = bases.cc
         c, nwin, T, n_pad = msm_bucket.msm_geometry(Vesta, n, dev)
@@ -126,7 +233,9 @@ def main(argv=None) -> int:
         vk = keygen_vk(params, circ.without_witnesses())
         pk = keygen_pk(params, vk, circ.without_witnesses())
         log = []
-        originals = {name: getattr(msm_bucket, name) for name in KERNELS}
+        wrapped = ([(msm_bucket, name) for name in KERNELS]
+                   + [(msm_sorted, name) for name in SORTED_KERNELS])
+        originals = {name: getattr(mod, name) for mod, name in wrapped}
 
         def timed(name):
             def run(*args, **kwargs):
@@ -139,8 +248,8 @@ def main(argv=None) -> int:
                 return out
             return run
 
-        for name in KERNELS:
-            setattr(msm_bucket, name, timed(name))
+        for mod, name in wrapped:
+            setattr(mod, name, timed(name))
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -150,10 +259,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             prove_s = time.perf_counter() - t0
         finally:
-            for name in KERNELS:
-                setattr(msm_bucket, name, originals[name])
-        ms = {name: 0.0 for name in KERNELS}
-        launches = {name: 0 for name in KERNELS}
+            for mod, name in wrapped:
+                setattr(mod, name, originals[name])
+        ms = {name: 0.0 for name in originals}
+        launches = {name: 0 for name in originals}
         for name, start, end in log:
             ms[name] += start.elapsed_time(end)
             launches[name] += 1
