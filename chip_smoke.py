@@ -6,7 +6,10 @@ Builds the ten CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
 main path's shapes and times both (the bucket MSM's kernels 2-4 at both
 window widths: c = 4 at M = 3, n = 2^14 + 1 and c = 8 at M = 2, n = 2^15,
-each MSM also against msm_host), reproduces the golden proof bytes of
+each MSM also against msm_host; kernel 1 bit for bit at every level of the
+2^14 and 2^16 plans, both directions, on edge inputs 0, 1, p - 1 and 2p - 1
+beside values below 2p, and timed at every level of both; kernel 7 also on
+identity, equal and opposite windows), reproduces the golden proof bytes of
 MulCircuit (k = 4), and drives four paths, each with the kernels' launch
 counters set to 0 just before it and read just after:
 
@@ -21,7 +24,8 @@ counters set to 0 just before it and read just after:
   sigma commits, the vanishing argument's random commit and the verifier's
   final MSM take the sorted-bucket MSM (kernels 5-7) and every other MSM the
   bucket MSM at c = 8 (kernels 2-4, timed by CUDA events through the proof
-  beside kernels 5-7). The proof has the pinned bytes (BENCH_K16_PROOF_SHA256)
+  beside kernels 5-7; kernel 1's launches counted too). The proof has the
+  pinned bytes (BENCH_K16_PROOF_SHA256)
   and verifies, a flipped byte is rejected, and the proof made again with the sorted MSM
   switched off, then once more with it on, has the same bytes (those two
   proofs are both warm, so their times compare); commit_lagrange(v) =
@@ -41,7 +45,13 @@ counters set to 0 just before it and read just after:
 * the profiling tool: `halo2_tpu_torch.tools.profile_kernels.tilemul` over
   2^18 elements, which runs kernels 9 and 10 (eight chained Montgomery
   products per element; one mixed addition per point); both are then held
-  against their plain versions on the tool's inputs.
+  against their plain versions on the tool's inputs. Its `oplat` probe then
+  gives the clock cycles of one field operation on one thread.
+
+Each kernel is timed twice: `ms`, the median CUDA-event time of one call
+(host launch included), and `device_ms`, the CUDA-event time per call of ten
+calls replayed from one CUDA graph (the card's own time, which for a kernel
+of tens of microseconds is well below the event time of one call).
 
 Every phase prints one JSON line; any failure raises and exits non-zero. The
 last line is
@@ -146,6 +156,32 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """The card's time per call of fn(): `reps` calls captured in one CUDA
+    graph, its replay timed by CUDA events. Unlike an event pair around one
+    call it leaves out the host's launch time, which for a kernel of tens of
+    microseconds is most of the event time; what remains between the
+    kernels is the graph's launch gap of about a microsecond."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def require(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
@@ -182,7 +218,7 @@ def main() -> int:
     from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
     from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx, PointVec
-    from halo2_tpu_torch.ops.field import FieldCtx, from_mont, limbs_to_ints
+    from halo2_tpu_torch.ops.field import FieldCtx, from_mont, ints_to_limbs, limbs_to_ints
     from halo2_tpu_torch.ops.msm import MSMBases, msm_host
     from halo2_tpu_torch.ops.ntt import NttPlan
     from halo2_tpu_torch.plonk.error import OpeningError
@@ -232,18 +268,25 @@ def main() -> int:
     def canon_equal(a, b, ctx=sctx):
         return torch.equal(from_mont(a.reshape(-1, 16), ctx), from_mont(b.reshape(-1, 16), ctx))
 
-    def level_bound(xl, tab, g):
-        """Bound of one NTT level over the columns of xl (Fp): x read and
-        written once, the twiddle tables read once, and one product per
-        twiddle other than 1 (stage 0's are all 1, and so are inter row 0
-        and the first entry of every inter row)."""
-        cols = xl.shape[0]
-        nbytes = 4 * (xl.numel() * 2 + tab["stw"].numel() + tab["inter"].numel())
+    def level_bound(cols, f, tab, g):
+        """Bound of one NTT level over `cols` columns of f elements (Fp): each
+        element read and written once, the twiddle tables read once, and one
+        product per twiddle other than 1 (stage 0's are all 1, and so are
+        inter row 0 and the first entry of every inter row)."""
+        inter = tab["inter"]
+        nbytes = 4 * (cols * f * 16 * 2 + tab["stw"].numel() + (0 if inter is None else inter.numel()))
         one = sctx.const(1, dev)
-        stw_prods = int((tab["stw"] != one).any(-1).sum())
-        inter_prods = (tab["inter"] != one).any(-1).sum(-1)
-        prods = cols * stw_prods + int(inter_prods[torch.arange(cols, device=dev) % g].sum())
+        prods = cols * int((tab["stw"] != one).any(-1).sum())
+        if inter is not None:
+            prods += int((inter != one).any(-1).sum(-1)[torch.arange(cols, device=dev) % g].sum())
         return (*bound(nbytes, mont_mul_instrs(q) * prods), prods)
+
+    def edge_mont(n):
+        """(n, 16) Montgomery limbs of Fp: 0, 1, p - 1 and 2p - 1 (the ends of
+        the lazy domain [0, 2p)) first, uniform values below 2p after them."""
+        vals = [0, 1, q - 1, 2 * q - 1] + [int.from_bytes(rng.bytes(32), "little") % (2 * q)
+                                           for _ in range(n - 4)]
+        return torch.as_tensor(ints_to_limbs(vals), device=dev)
 
     report = {}
 
@@ -269,8 +312,9 @@ def main() -> int:
     k16_kernels = list(msm_sorted.LAUNCHES)
     tool_kernels = list(tile_bench.LAUNCHES)
 
-    # ---- kernel 1: constant-geometry NTT level ----
+    # ---- kernel 1: constant-geometry NTT level, every level of 2^14 and 2^16 ----
     t0 = time.perf_counter()
+    cg_levels = []
     for log_n in (14, 16):
         n = 1 << log_n
         omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - log_n), q)
@@ -278,35 +322,50 @@ def main() -> int:
         x = sctx.to_mont(rand_canon((n,)))
         fwd = ntt_cg.CgNttPlan(Fp, log_n, omega)
         inv = ntt_cg.CgNttPlan(Fp, log_n, omega_inv)
-        # every level of both plans: kernel == plain on the same inputs
+        # every level of both plans: kernel == plain, bit for bit, on edge inputs
         for plan in (fwd, inv):
-            tabs = plan._tables(dev)
-            for li, (lv, tab) in enumerate(zip(plan.levels, tabs)):
-                xl = sctx.to_mont(rand_canon((n // lv["f"], lv["f"])))
-                yk = ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx)
-                yp = ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx)
+            for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables(dev))):
+                f, g = lv["f"], lv["g"]
+                xl = edge_mont(n).reshape(n // (f * g), f, g, 16)
+                yk = ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
+                yp = ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
+                require(torch.equal(yk, yp), f"cg_ntt_level 2^{log_n} level {li}: kernel != plain (limbs)")
                 same("cg_ntt_level", yk, yp, sctx, f"cg_ntt_level 2^{log_n} level {li}: kernel != plain")
         y = fwd(x)
         require(canon_equal(y, NttPlan(Fp, log_n, omega)(x)), f"NTT 2^{log_n} != radix-2 reference")
         back = sctx.mul(inv(y), sctx.const(pow(n, -1, q), dev))
         require(canon_equal(back, x), f"inverse NTT 2^{log_n} does not invert")
+        xe = edge_mont(n)
+        require(canon_equal(fwd(xe), NttPlan(Fp, log_n, omega)(xe)), f"NTT 2^{log_n} on edge inputs")
         ms_full = time_ms(lambda: fwd(x))
+        # each level of the forward plan, timed at its own shape
+        for li, (lv, tab) in enumerate(zip(fwd.levels, fwd._tables(dev))):
+            f, g = lv["f"], lv["g"]
+            xl = x.reshape(n // (f * g), f, g, 16)
+            b_ms, b_by, prods = level_bound(n // f, f, tab, g)
+
+            def level():
+                return ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
+
+            row = dict(log_n=log_n, level=li, f=f, g=g, products=prods, bound_ms=b_ms, bound_by=b_by,
+                       ms=time_ms(level), device_ms=device_ms(level))
+            if (log_n, li) == (16, 0):
+                row["plain_ms"] = time_ms(
+                    lambda: ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx, tab["perm"]), 2)
+            cg_levels.append(row)
+            emit({"phase": "time", "kernel": "cg_ntt_level", **row})
         emit({"phase": "ntt", "log_n": log_n, "exact": True, "full_transform_ms": ms_full,
               "levels": [(lv["f"], lv["g"]) for lv in fwd.levels]})
-        if log_n == 16:
-            lv, tab = fwd.levels[0], fwd._tables(dev)[0]
-            f, g = lv["f"], lv["g"]
-            xl = sctx.to_mont(rand_canon((n // f, f)))
-            ms = time_ms(lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx))
-            plain_ms = time_ms(lambda: ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx), 2)
-            b_ms, b_by, _ = level_bound(xl, tab, g)
-            report["cg_ntt_level"] = dict(
-                route="cuda", source="halo2_tpu_torch/csrc/ntt_cg.cu",
-                replaces="halo2_tpu/ops/ntt_pallas2.py:219",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=f"cols={n // f} f={f} g={g} (first level of 2^16)",
-            )
-            emit({"phase": "time", "kernel": "cg_ntt_level", **report["cg_ntt_level"]})
+    first = cg_levels[2]  # the first level of 2^16: the kernel's row
+    report["cg_ntt_level"] = dict(
+        route="cuda", source="halo2_tpu_torch/csrc/ntt_cg.cu",
+        replaces="halo2_tpu/ops/ntt_pallas2.py:219",
+        ms=first["ms"], device_ms=first["device_ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
+        shape=f"B=1 f={first['f']} g={first['g']} (first level of 2^16)",
+        levels=[{k: r[k] for k in ("log_n", "level", "f", "g", "ms", "device_ms", "bound_ms", "bound_by")}
+                for r in cg_levels],
+    )
     emit({"phase": "ntt_done", "seconds": time.perf_counter() - t0})
 
     # ---- kernel 8: mixed-radix NTT level (the NTT=pallas engine) ----
@@ -345,12 +404,13 @@ def main() -> int:
             cols = n // f
             xl = sctx.to_mont(rand_canon((cols, f)))
             ms = time_ms(lambda: ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx))
+            dev_ms = device_ms(lambda: ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx))
             plain_ms = time_ms(lambda: ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], sctx), 2)
-            b_ms, b_by, prods = level_bound(xl, tab, g)
+            b_ms, b_by, prods = level_bound(cols, f, tab, g)
             report["mr_col_ntt"] = dict(
                 route="cuda", source="halo2_tpu_torch/csrc/ntt_mr.cu",
-                replaces="halo2_tpu/ops/ntt_pallas.py:392",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                replaces="halo2_tpu/ops/ntt_pallas.py:392", ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"cols={cols} f={f} g={g} (first level of 2^16)",
             )
             emit({"phase": "time", "kernel": "mr_col_ntt", "products": prods, **report["mr_col_ntt"]})
@@ -388,21 +448,29 @@ def main() -> int:
     for got, want in zip(tiles["padd_out"], tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc)):
         same("tile_padd", got, want, fctx, "tile_padd: kernel != plain")
     mul = mont_mul_instrs(fctx.p_int)
-    for name, plain, nbytes, muls, replaces, per in (
-        ("tile_mul", lambda: tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), 3 * 64 * n,
+    for name, kern, plain, nbytes, muls, replaces, per in (
+        ("tile_mul", lambda: tile_bench.tile_mul(tiles["a"], tiles["b"], fctx),
+         lambda: tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), 3 * 64 * n,
          tile_bench.MULS_PER_ELEMENT * n * mul, "tools/profile_kernels.py:61", "ns_per_product"),
-        ("tile_padd", lambda: tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc), 8 * 64 * n,
+        ("tile_padd", lambda: tile_bench.tile_padd(*tiles["pts"], pallas_cc),
+         lambda: tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc), 8 * 64 * n,
          MIXED_ADD_PRODUCTS * n * mul, "tools/profile_kernels.py:92", "ns_per_point"),
     ):
         b_ms, b_by = bound(nbytes, muls)
         report[name] = dict(
             route="cuda", source="halo2_tpu_torch/csrc/tile_bench.cu", replaces=replaces,
-            ms=tiles["mul_ms" if name == "tile_mul" else "padd_ms"], plain_ms=time_ms(plain, 1),
+            ms=tiles["mul_ms" if name == "tile_mul" else "padd_ms"], device_ms=device_ms(kern),
+            plain_ms=time_ms(plain, 1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=f"n={n} (Pallas)",
             **{per: tiles[per]})
         emit({"phase": "time", "kernel": name, **report[name]})
     emit({"phase": "profile_tilemul", "n": n, "exact": True, "launches": tile_launches,
           "seconds": time.perf_counter() - t0})
+    # the tool's latency probe: cycles of one field operation on one thread
+    # (fe_mul against the carry-chain forms kernels 1 and 7 use), each
+    # checked against its plain version
+    emit({"phase": "op_latency", "cycles_per_op": profile_kernels.oplat(256, device=dev),
+          "exact": True})
 
     # ---- kernels 2-4: bucket MSM ----
     t0 = time.perf_counter()
@@ -486,8 +554,8 @@ def main() -> int:
         # the k = 14 commit shape (c = 4) is each kernel's row; c = 8 rides along
         for name, (kfn, pfn, nbytes, muls, replaces) in timings.items():
             b_ms, b_by = bound(nbytes, muls)
-            row = dict(ms=time_ms(kfn), plain_ms=time_ms(pfn, 1), bound_ms=b_ms, bound_by=b_by,
-                       shape=f"M={M} n={n} c={c} T={T}")
+            row = dict(ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=time_ms(pfn, 1),
+                       bound_ms=b_ms, bound_by=b_by, shape=f"M={M} n={n} c={c} T={T}")
             if c == 4:
                 report[name] = dict(route="cuda", source="halo2_tpu_torch/csrc/msm_bucket.cu",
                                     replaces=replaces, library_ms=None, **row)
@@ -590,7 +658,7 @@ def main() -> int:
     for name, start, end in event_log:
         proof_ms[name] += start.elapsed_time(end)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_symbol = {"cg_ntt_level": "cg_level_kernel(", "msm_accum": "accum_kernel(",
+    kernel_symbol = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
                      "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel("}
     traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
                  for name, sym in kernel_symbol.items()}
@@ -721,6 +789,7 @@ def main() -> int:
     for stage in ("keygen_vk", "prove", "verify"):
         for name in k16_kernels:
             require(stage_launches[stage][name] > 0, f"{name} was not launched in k=16 {stage}")
+    require(launches16["cg_ntt_level"] > 0, "kernel 1 was not launched on the k=16 path")
     overflows = {key: cnt for key, cnt in routes16.items() if key.endswith(":overflow")}
     require(not overflows, f"sorted-MSM overflows on the k=16 path: {overflows}")
     bad = bytearray(proof16)
@@ -823,7 +892,39 @@ def main() -> int:
     same("msm_sorted_fold", wk, wp, pctx, "msm_sorted_fold: kernel != plain")
     hk = msm_sorted.msm_sorted_horner(wk, cc)
     hp = msm_sorted.msm_sorted_horner_plain(wk, cc)
+    require(torch.equal(hk, hp), "msm_sorted_horner: kernel != plain (limbs)")
     same("msm_sorted_horner", hk, hp, pctx, "msm_sorted_horner: kernel != plain")
+    # kernel 7 on edge windows: identity windows (the top one, a run, the
+    # bottom; one with Z = p), all identity, equal windows (2^16 W_15 meets
+    # W_14 = 2^16 W_15: P + P inside the addition) and opposite ones (it meets
+    # -(2^16 W_15)); projective, each point scaled by its own lambda
+    gen = Vesta.generator()
+    base_pts = [gen.mul(int(rng.integers(1, 1 << 62))) for _ in range(16)]
+    ident = Vesta.identity()
+    cases = {"identity_windows": [ident if w in (15, 14, 9, 8, 7, 0) else pt
+                                  for w, pt in enumerate(base_pts)],
+             "all_identity": [ident] * 16,
+             "equal_windows": base_pts[:14] + [base_pts[15].mul(1 << 16), base_pts[15]],
+             "opposite_windows": base_pts[:14] + [-base_pts[15].mul(1 << 16), base_pts[15]]}
+    edge_wins = []
+    for case, pts in cases.items():
+        pv = cc.encode_points(pts, dev)
+        lam = pctx.consts([int(rng.integers(2, 1 << 62)) for _ in range(16)], dev)
+        ew = torch.stack([pctx.mul(t, lam) for t in pv], dim=1).contiguous()
+        if case == "identity_windows":
+            ew[9, 2] = torch.as_tensor(ints_to_limbs([Vesta.p()])[0], device=dev)
+        want = ident
+        for pt in reversed(pts):
+            want = want.mul(1 << 16) + pt
+        ek = msm_sorted.msm_sorted_horner(ew, cc)
+        require(cc.decode_points(PointVec(ek[None, 0], ek[None, 1], ek[None, 2]))[0] == want,
+                f"msm_sorted_horner {case}: != sum_w 2^(16 w) W_w on the host")
+        edge_wins.append((case, ew, ek))
+    # the plain version takes the four cases as one batch of independent chains
+    ep = msm_sorted.msm_sorted_horner_plain(torch.stack([ew for _, ew, _ in edge_wins], 1), cc)
+    for i, (case, _, ek) in enumerate(edge_wins):
+        require(torch.equal(ek, ep[i]), f"msm_sorted_horner {case}: kernel != plain (limbs)")
+        same("msm_sorted_horner", ek, ep[i], pctx, f"msm_sorted_horner {case}: kernel != plain")
     got = msm_sorted.msm_sorted(canon, bases)
     t1 = time.perf_counter()
     want = msm_host(limbs_to_ints(canon.cpu()), bases.host_points[:n], Vesta)
@@ -913,7 +1014,8 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, work[name])
         report[name] = dict(
             route="cuda", source="halo2_tpu_torch/csrc/msm_sorted.cu", replaces=replaces,
-            ms=time_ms(kfn), plain_ms=time_ms(pfn, 1), bound_ms=b_ms, bound_by=b_by,
+            ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=time_ms(pfn, 1),
+            bound_ms=b_ms, bound_by=b_by,
             library_ms=None, shape=f"n={n} nw=16 W={msm_sorted.LANES} KB={msm_sorted.KB}",
         )
         emit({"phase": "time", "kernel": name, **report[name]})
@@ -928,12 +1030,14 @@ def main() -> int:
         path, counts, per_proof = paths[name]
         kernels.append({"name": name, "route": rec["route"], "source": rec["source"],
                         "replaces": rec["replaces"], "launches": counts[name], "main_path": path,
-                        "max_abs_err": errs[name], "ms": rec["ms"],
+                        "max_abs_err": errs[name], "ms": rec["ms"], "device_ms": rec["device_ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                         "shape": rec["shape"], "ms_per_warm_proof": per_proof.get(name),
                         **({"at_c8": rec["at_c8"], "ms_per_k16_proof": bucket_proof_ms[name],
-                            "launches_k16": launches16[name]} if "at_c8" in rec else {})})
+                            "launches_k16": launches16[name]} if "at_c8" in rec else {}),
+                        **({"levels": rec["levels"], "launches_k16": launches16[name]}
+                           if "levels" in rec else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")
     emit({"kernels": kernels})

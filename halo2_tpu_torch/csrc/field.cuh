@@ -104,6 +104,85 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts
   return fe_from(t);
 }
 
+// The moduli of the Pasta curves: p = 1 + d' 2^32 + 2^254 with d' < 2^94
+// (words 4-6 zero, word 7 = 2^30) and so n0 = -1/p mod 2^32 = 2^32 - 1.
+inline bool pasta_form(const FieldConsts& k) {
+  return k.p[0] == 1 && k.p[4] == 0 && k.p[5] == 0 && k.p[6] == 0 && k.p[7] == 0x40000000u &&
+         k.n0 == 0xFFFFFFFFu;
+}
+
+// The same CIOS product with PTX carry chains (mad.lo.cc / madc.hi.cc /
+// addc): 34 multiply-adds a word of b, against fe_mul's 64-bit adds, which
+// emulate each carry with a compare or a second add. The carry flag is one,
+// so the chain is the latency: kPasta (p of pasta_form, checked by the
+// caller) adds m p as m + 2^32 m d' + 2^254 m, with m d' formed by six
+// products off the chain, 29 chained instructions a word instead of 34. On
+// one thread of an H100 a product takes about 1 145 cycles (910 in the
+// Pasta form) against fe_mul's 1 650 (`profile_kernels oplat`).
+// Both return the integer fe_mul returns, (a*b + M*p) / 2^256 with
+// M = -a*b/p mod 2^256 and no final subtraction: for inputs below 2p + 2^126
+// every partial sum of a row stays below 2^288 (9 words) and every row's
+// result below 2^256 (see the note at the head of this file), so no carry
+// leaves the 9 words. Kernels 1 and 7 use it; the other kernels keep fe_mul.
+template <bool kPasta>
+__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const FieldConsts& k) {
+  uint32_t t[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t bi = b.v[i];
+    // t += a * b_i: the low halves into words 0-7 (the carry into word 8),
+    // then the high halves into words 1-8
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(a.v[0]), "r"(bi));
+#pragma unroll
+    for (int j = 1; j < 8; ++j)
+      asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(a.v[j]), "r"(bi));
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[8]));
+    asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(a.v[0]), "r"(bi));
+#pragma unroll
+    for (int j = 1; j < 7; ++j)
+      asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(a.v[j]), "r"(bi));
+    asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(t[8]) : "r"(a.v[7]), "r"(bi));
+    // t += m * p with m = t_0 * n0, which clears word 0
+    if (kPasta) {
+      const uint32_t m = 0u - t[0];
+      // q = m (d1 + d2 2^32 + d3 2^64) < 2^126 in words q1-q4
+      const uint32_t q1 = m * k.p[1];
+      uint32_t q2 = __umulhi(m, k.p[1]), q3 = __umulhi(m, k.p[2]), q4 = __umulhi(m, k.p[3]);
+      asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(q2) : "r"(m), "r"(k.p[2]));
+      asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(q3) : "r"(m), "r"(k.p[3]));
+      asm volatile("addc.u32 %0, %0, 0;" : "+r"(q4));
+      asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(t[0]) : "r"(m));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[1]) : "r"(q1));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[2]) : "r"(q2));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[3]) : "r"(q3));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[4]) : "r"(q4));
+      asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(t[5]));
+      asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(t[6]));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[7]) : "r"(m << 30));
+      asm volatile("addc.u32 %0, %0, %1;" : "+r"(t[8]) : "r"(m >> 2));
+    } else {
+      const uint32_t m = t[0] * k.n0;
+      asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(m), "r"(k.p[0]));
+#pragma unroll
+      for (int j = 1; j < 8; ++j)
+        asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(m), "r"(k.p[j]));
+      asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[8]));
+      asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(m), "r"(k.p[0]));
+#pragma unroll
+      for (int j = 1; j < 7; ++j)
+        asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(m), "r"(k.p[j]));
+      asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(t[8]) : "r"(m), "r"(k.p[7]));
+    }
+    // divide by 2^32
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
+  }
+  return fe_from(t);
+}
+
 // (a + b) reduced below 2p.
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b, const FieldConsts& k) {
   Fe s, d;
@@ -142,6 +221,40 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConsts
     c = x >> 32;
   }
   return borrow ? e : d;
+}
+
+// fe_add and fe_sub with PTX carry chains: the same results in about 96
+// cycles on one thread against 160 and 190 (kernels 1 and 7 use them).
+__device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const FieldConsts& k) {
+  Fe s, d;
+  uint32_t c;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(s.v[0]) : "r"(a.v[0]), "r"(b.v[0]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(s.v[i]) : "r"(a.v[i]), "r"(b.v[i]));
+  asm volatile("addc.u32 %0, 0, 0;" : "=r"(c));
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d.v[0]) : "r"(s.v[0]), "r"(k.twop[0]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d.v[i]) : "r"(s.v[i]), "r"(k.twop[i]));
+  asm volatile("subc.u32 %0, %0, 0;" : "+r"(c));  // carry - borrow: all ones iff a + b < 2p
+  return c == 0xFFFFFFFFu ? s : d;
+}
+
+__device__ __forceinline__ Fe fe_sub_cc(const Fe& a, const Fe& b, const FieldConsts& k) {
+  Fe d, r;
+  uint32_t m;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d.v[0]) : "r"(a.v[0]), "r"(b.v[0]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d.v[i]) : "r"(a.v[i]), "r"(b.v[i]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(m));  // all ones iff b > a
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r.v[0]) : "r"(d.v[0]), "r"(k.twop[0] & m));
+#pragma unroll
+  for (int i = 1; i < 7; ++i)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r.v[i]) : "r"(d.v[i]), "r"(k.twop[i] & m));
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r.v[7]) : "r"(d.v[7]), "r"(k.twop[7] & m));
+  return r;
 }
 
 struct Pt {

@@ -83,13 +83,26 @@
 // = 51, then 5 + 10 + 1 + 5 = 21: 72 operations. Shorter segments give more
 // threads than fit at once, longer ones a longer chain. The additions are
 // calls (fold_add / fold_dbl in field.cuh), as in kernel 3.
-// msm_sorted_horner (unchanged): one thread, 16 doublings and one addition
-// per window.
+// msm_sorted_horner (replaces msm_sorted.py:497 _horner_fn): sum_w 2^(16 w)
+// wins_w from the top window down, 16 doublings and one addition a window:
+// 240 doublings and 15 additions in one chain, which parallel windows cannot
+// shorten (2^240 W_15 needs its 240 doublings in sequence). The first port
+// ran it on one thread: 255 point operations of 8-14 dependent products,
+// about 2 100 products at about 0.96 us each on an H100, the additions
+// included. Bound by the latency of that chain, so this kernel shortens each
+// link: one warp, the products of a doubling (8) or a full addition (14)
+// that do not depend on each other run at once on lanes 0-5 (three rounds
+// each: 4, 2, 3 and 6, 2, 6 products), each product is fe_mul_cc's
+// carry-chain product (the Pasta form on Pasta), each addition fe_add_cc /
+// fe_sub_cc, and the identity test runs once a window. The operations,
+// their operands and their order are msm_sorted_horner_plain's, so the
+// projective result is the same.
 //
 // ptxas (-Xptxas -v, sm_90a): accum_kernel 128 registers, 124 bytes of spill
 // stores and 88 of loads (80-byte stack); fold_kernel 242 registers, no
 // spills, a 1000-byte stack for the calls; window_kernel 194 registers, no
-// spills, 616-byte stack; horner_kernel 186 registers. The first port's
+// spills, 616-byte stack; horner_kernel 80 registers in either form, no
+// stack (the one-thread kernel of the first port took 186). The first port's
 // combine_kernel took 255 registers with 128 bytes of spills.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -304,14 +317,110 @@ __global__ void window_kernel(const int32_t* __restrict__ part, int32_t* __restr
   if (lane == 0) bucket_store(wins + (long long)w * PT, x);
 }
 
+// ---- kernel 7: a warp runs the Horner chain ----
+// Each round of independent products of an RCB15 doubling or addition runs
+// on lanes 0-5 at once, a product a lane (fe_mul_cc); lane j's product
+// reaches every lane by shuffles, and every lane makes the additions, the
+// subtractions and the skip tests itself, so the warp never diverges.
+
+__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src);
+  return r;
+}
+
+// c ? a : b word by word, in registers (a select of whole structs would go
+// through a local-memory copy)
+__device__ __forceinline__ Fe fe_sel(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
+// pt_double's operations, its 8 general products in three rounds:
+// (Y Y, Y Z, Z Z, X Y), (3b ZZ, YZ Z3), (t2 Z3, t0 Y3, t0 XY)
+template <bool kPasta>
+__device__ __forceinline__ Pt warp_double(const Pt& a, const FieldConsts& k, int lane) {
+  const Fe b3 = fe_from(k.b3);
+  Fe r = fe_mul_cc<kPasta>(fe_sel(lane == 2, a.z, fe_sel(lane == 3, a.x, a.y)),
+                           fe_sel(lane == 0 || lane == 3, a.y, a.z), k);
+  const Fe yy = shfl_fe(r, 0), yz = shfl_fe(r, 1), zz = shfl_fe(r, 2), xy = shfl_fe(r, 3);
+  Fe z3 = fe_add_cc(yy, yy, k);
+  z3 = fe_add_cc(z3, z3, k);
+  z3 = fe_add_cc(z3, z3, k);
+  r = fe_mul_cc<kPasta>(fe_sel(lane == 0, b3, yz), fe_sel(lane == 0, zz, z3), k);
+  const Fe t2 = shfl_fe(r, 0);
+  Pt out;
+  out.z = shfl_fe(r, 1);
+  const Fe y3 = fe_add_cc(yy, t2, k);
+  const Fe t1 = fe_add_cc(t2, t2, k);
+  const Fe t0 = fe_sub_cc(yy, fe_add_cc(t1, t2, k), k);
+  r = fe_mul_cc<kPasta>(fe_sel(lane == 0, t2, t0),
+                        fe_sel(lane == 0, z3, fe_sel(lane == 1, y3, xy)), k);
+  const Fe x3 = shfl_fe(r, 0), y3b = shfl_fe(r, 1), x3b = shfl_fe(r, 2);
+  out.y = fe_add_cc(x3, y3b, k);
+  out.x = fe_add_cc(x3b, x3b, k);
+  return out;
+}
+
+// pt_add's operations, its 14 general products in three rounds of 6, 2, 6;
+// lanes 3-5 multiply sums (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
+template <bool kPasta>
+__device__ __forceinline__ Pt warp_add(const Pt& a, const Pt& b, const FieldConsts& k, int lane) {
+  const Fe b3 = fe_from(k.b3);
+  const bool x1 = lane == 0 || lane == 3 || lane == 5, y1 = lane == 1 || lane == 4;
+  const bool y2 = lane == 3;
+  Fe u = fe_sel(x1, a.x, fe_sel(y1, a.y, a.z)), v = fe_sel(x1, b.x, fe_sel(y1, b.y, b.z));
+  const Fe us = fe_add_cc(u, fe_sel(y2, a.y, a.z), k), vs = fe_add_cc(v, fe_sel(y2, b.y, b.z), k);
+  Fe r = fe_mul_cc<kPasta>(fe_sel(lane >= 3, us, u), fe_sel(lane >= 3, vs, v), k);
+  const Fe t0 = shfl_fe(r, 0), t1 = shfl_fe(r, 1), t2 = shfl_fe(r, 2);
+  const Fe t3 = fe_sub_cc(shfl_fe(r, 3), fe_add_cc(t0, t1, k), k);
+  const Fe t4 = fe_sub_cc(shfl_fe(r, 4), fe_add_cc(t1, t2, k), k);
+  const Fe y3 = fe_sub_cc(shfl_fe(r, 5), fe_add_cc(t0, t2, k), k);
+  const Fe t0b = fe_add_cc(fe_add_cc(t0, t0, k), t0, k);
+  r = fe_mul_cc<kPasta>(b3, fe_sel(lane == 0, t2, y3), k);
+  const Fe t2b = shfl_fe(r, 0), y3b = shfl_fe(r, 1);
+  const Fe z3 = fe_add_cc(t1, t2b, k);
+  const Fe t1b = fe_sub_cc(t1, t2b, k);
+  // lanes 0-5: t4 y3b, t3 t1b, y3b t0b, t1b z3, t0b t3, z3 t4
+  u = fe_sel(lane == 0, t4, fe_sel(lane == 1, t3, fe_sel(lane == 2, y3b,
+          fe_sel(lane == 3, t1b, fe_sel(lane == 4, t0b, z3)))));
+  v = fe_sel(lane == 0, y3b, fe_sel(lane == 1, t1b, fe_sel(lane == 2, t0b,
+          fe_sel(lane == 3, z3, fe_sel(lane == 4, t3, t4)))));
+  r = fe_mul_cc<kPasta>(u, v, k);
+  Pt out;
+  out.x = fe_sub_cc(shfl_fe(r, 1), shfl_fe(r, 0), k);
+  out.y = fe_add_cc(shfl_fe(r, 3), shfl_fe(r, 2), k);
+  out.z = fe_add_cc(shfl_fe(r, 5), shfl_fe(r, 4), k);
+  return out;
+}
+
+// msm_sorted_horner_plain's chain: from the top window down, 16 doublings
+// and one addition a window under the skip rule (one warp, blockDim 32).
+template <bool kPasta>
 __global__ void horner_kernel(const int32_t* __restrict__ wins, int32_t* __restrict__ out, int nw,
                               FieldConsts k) {
+  const int lane = threadIdx.x;
   Pt acc = pt_load(wins + (long long)(nw - 1) * PT);
+#pragma unroll 1
   for (int w = nw - 2; w >= 0; --w) {
-    for (int i = 0; i < 16; ++i) acc = dbl_skip(acc, k);
-    acc = add_skip(acc, pt_load(wins + (long long)w * PT), k);
+    // dbl_skip 16 times; the curves have prime order, so the double of a
+    // point other than the identity is not the identity (Z3 = 8 Y^3 Z), and
+    // one test a window gives every test's answer
+    if (!is_identity(acc, k)) {
+#pragma unroll 1
+      for (int i = 0; i < 16; ++i) acc = warp_double<kPasta>(acc, k, lane);
+    }
+    const Pt b = pt_load(wins + (long long)w * PT);
+    if (is_identity(b, k)) continue;
+    if (is_identity(acc, k))
+      acc = b;
+    else
+      acc = warp_add<kPasta>(acc, b, k, lane);
   }
-  pt_store(out, acc);
+  if (lane == 0) pt_store(out, acc);
 }
 
 }  // namespace
@@ -345,6 +454,7 @@ extern "C" int msm_sorted_fold(const int32_t* buckets, const int32_t* entries,
 
 extern "C" int msm_sorted_horner(const int32_t* wins, int32_t* out, int nw,
                                  const FieldConsts* consts, void* stream) {
-  horner_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(wins, out, nw, *consts);
+  auto kernel = pasta_form(*consts) ? horner_kernel<true> : horner_kernel<false>;
+  kernel<<<1, 32, 0, (cudaStream_t)stream>>>(wins, out, nw, *consts);
   return (int)cudaGetLastError();
 }

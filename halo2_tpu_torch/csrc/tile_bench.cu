@@ -77,6 +77,36 @@ __global__ void tile_padd_kernel(const int32_t* __restrict__ x1, const int32_t* 
   store_fe(z3 + e * 16, r.z);
 }
 
+// The profiling tool's latency probe (no TPU kernel's port): one thread runs
+// x <- op(x, b) n times in a dependent chain and reads the SM's clock around
+// it. op 0 fe_mul, 1 fe_mul_cc (any modulus), 2 fe_mul_cc (Pasta form), 3
+// fe_add, 4 fe_add_cc, 5 fe_sub, 6 fe_sub_cc; one kernel an op, so that the
+// loop holds nothing but the chain.
+template <int kOp>
+__device__ __forceinline__ Fe apply_op(const Fe& x, const Fe& y, const FieldConsts& k) {
+  if (kOp == 0) return fe_mul(x, y, k);
+  if (kOp == 1) return fe_mul_cc<false>(x, y, k);
+  if (kOp == 2) return fe_mul_cc<true>(x, y, k);
+  if (kOp == 3) return fe_add(x, y, k);
+  if (kOp == 4) return fe_add_cc(x, y, k);
+  if (kOp == 5) return fe_sub(x, y, k);
+  return fe_sub_cc(x, y, k);
+}
+
+template <int kOp>
+__global__ void op_chain_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                                int32_t* __restrict__ out, long long* __restrict__ cycles, int n,
+                                FieldConsts k) {
+  Fe x = load_fe(a);
+  const Fe y = load_fe(b);
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int r = 0; r < n; ++r) x = apply_op<kOp>(x, y, k);
+  const long long t1 = clock64();
+  store_fe(out, x);
+  *cycles = t1 - t0;
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -94,5 +124,17 @@ extern "C" int tile_padd(const int32_t* x1, const int32_t* y1, const int32_t* z1
                          int32_t* z3, long long n, const FieldConsts* consts, void* stream) {
   tile_padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       x1, y1, z1, x2, y2, x3, y3, z3, n, *consts);
+  return (int)cudaGetLastError();
+}
+
+// a, b, out: (16,) int32 limbs; cycles: one int64. One thread. Op 2 needs
+// a modulus of pasta_form.
+extern "C" int op_chain(const int32_t* a, const int32_t* b, int32_t* out, long long* cycles,
+                        int n, int op, const FieldConsts* consts, void* stream) {
+  void (*kernels[])(const int32_t*, const int32_t*, int32_t*, long long*, int, FieldConsts) = {
+      op_chain_kernel<0>, op_chain_kernel<1>, op_chain_kernel<2>, op_chain_kernel<3>,
+      op_chain_kernel<4>, op_chain_kernel<5>, op_chain_kernel<6>};
+  if (op < 0 || op > 6 || (op == 2 && !pasta_form(*consts))) return (int)cudaErrorInvalidValue;
+  kernels[op]<<<1, 1, 0, (cudaStream_t)stream>>>(a, b, out, cycles, n, *consts);
   return (int)cudaGetLastError();
 }

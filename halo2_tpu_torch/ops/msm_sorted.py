@@ -377,6 +377,8 @@ def msm_sorted_fold(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Ten
 
 
 def msm_sorted_horner_plain(wins: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
+    """Plain version of kernel 7: wins (nw, ..., 3, 16) -> (..., 3, 16), each
+    index of the dimensions after the first its own chain (a batch of MSMs)."""
     nw = wins.shape[0]
     acc = _points(wins[nw - 1 : nw])
     for w in range(nw - 2, -1, -1):

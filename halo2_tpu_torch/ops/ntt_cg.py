@@ -2,25 +2,27 @@
 
 Counterpart of `halo2_tpu/ops/ntt_pallas2.py`. A size-n transform is split
 into levels of size f <= 2^MAX_LOG_F (n = f * g, then g recursively, the
-four-step split of the reference's `fft/parallel.rs:195-255`). Each level
-runs `cg_ntt_level`: a size-f constant-geometry NTT on every column,
+four-step split of the reference's `fft/parallel.rs:195-255`). Level L sees
+the data as a (B, f, g) array (B the product of the earlier levels' f) and
+runs `cg_ntt_level`: a size-f constant-geometry NTT down every column
+(b, j2) over j1,
 
     y[2i]   = x[i] + tw_s[i] * x[i + f/2]
     y[2i+1] = x[i] - tw_s[i] * x[i + f/2]        i < f/2,  log2(f) stages,
 
 followed by the inter-level twiddle root^(k1 * j2). The iteration takes
 natural-order input and emits bit-reversed slots (slot i holds DFT index
-rev(i), verified in `_cg_stage_tables`); the wrapper gathers the slots back
-and does the transposes between levels in torch.
+rev(i), verified in `_cg_stage_tables`); the level writes slot i to row
+k1 = rev(i), so its (B, f, g) output is in natural k1 order and is, read as
+(B f, f', g'), the next level's input. The last level (g = 1) writes row k1
+of column b to k1 * B + perm[b], perm the digit reversal of b over the
+earlier levels' radices, which leaves X[k1 + f0 k2 + f0 f1 k3 + ...] in
+natural order. A transform is its levels' launches and nothing else.
 
-Layout between levels (the wrapper's choice): columns outermost, (cols, f,
-16) int32, so each column's f elements are contiguous for the kernel.
-
-Kernel 1 (`csrc/ntt_cg.cu`) replaces `ntt_pallas2.py::_cg_kernel`. It keeps a
-column in shared memory for all log2(f) stages and is bound by integer
-multiply throughput (see the source note). `cg_ntt_level` launches it for a
-CUDA tensor and runs `cg_ntt_level_plain`, the same arithmetic in torch,
-for a CPU tensor.
+Kernel 1 (`csrc/ntt_cg.cu`) replaces `ntt_pallas2.py::_cg_kernel`; its note
+says what bounds it and what its design does about that. `cg_ntt_level`
+launches it for a CUDA tensor and runs `cg_ntt_level_plain`, the same
+arithmetic in torch, for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Type
 
+import numpy as np
 import torch
 
 from ..fields import FieldElement
@@ -37,10 +40,14 @@ from .ntt import bitrev_perm
 
 LAUNCHES = {"cg_ntt_level": 0}
 
+# Threads a block of kernel 1 at most: f/2 a column, so a block holds
+# max(1, LEVEL_THREADS / (f/2)) columns (from `tools/msm_ab.py --ntt --sweep`).
+LEVEL_THREADS = 32
+
 _SIG = {
     "cg_ntt_level": (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p,
     )
 }
@@ -70,46 +77,59 @@ def _cg_stage_tables(f: int, w_f: int, p: int, r: int):
 
 
 def cg_ntt_level_plain(x: torch.Tensor, stw: torch.Tensor, inter: Optional[torch.Tensor],
-                       ctx: FieldCtx) -> torch.Tensor:
-    """Plain torch version of kernel 1: x (cols, f, 16) -> slot-order rows."""
-    cols, f, _ = x.shape
+                       ctx: FieldCtx, perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch version of kernel 1, the same contract (`cg_ntt_level`)."""
+    B, f, g, _ = x.shape
+    cols = x.transpose(1, 2).reshape(B * g, f, NLIMBS)
     for s in range(stw.shape[0]):
-        lo, hi = x[:, : f // 2], x[:, f // 2 :]
+        lo, hi = cols[:, : f // 2], cols[:, f // 2 :]
         t = mont_mul(hi, stw[s], ctx)
-        x = torch.stack([add_mod(lo, t, ctx), sub_mod(lo, t, ctx)], dim=2).reshape(cols, f, NLIMBS)
+        cols = torch.stack([add_mod(lo, t, ctx), sub_mod(lo, t, ctx)], dim=2).reshape(cols.shape)
     if inter is not None:
-        g = inter.shape[0]
-        idx = torch.arange(cols, device=x.device) % g
-        x = mont_mul(x, inter[idx], ctx)
-    return x
+        cols = mont_mul(cols, inter.repeat(B, 1, 1), ctx)  # column (b, j2) takes row j2
+    rev = torch.as_tensor(bitrev_perm(f.bit_length() - 1), device=x.device)
+    y = cols[:, rev]  # slot order -> k1 order
+    if perm is None:
+        return y.reshape(B, g, f, NLIMBS).transpose(1, 2).contiguous()
+    out = torch.empty((f, B, NLIMBS), dtype=x.dtype, device=x.device)
+    out[:, perm.long()] = y.transpose(0, 1)
+    return out
 
 
 def cg_ntt_level(x: torch.Tensor, stw: torch.Tensor, inter: Optional[torch.Tensor],
-                 ctx: FieldCtx) -> torch.Tensor:
-    """One CG level over every column of x (cols, f, 16) int32.
+                 ctx: FieldCtx, perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One CG level down every column (b, j2) of x (B, f, g, 16) int32.
 
     stw: (log f, f/2, 16) stage twiddles; inter: (g, f, 16) inter-level
-    twiddles (column j takes inter[j mod g]) or None. Launches kernel 1 on
-    a CUDA tensor; runs the plain version on a CPU tensor."""
+    twiddles in slot order (column (b, j2) takes inter[j2]) or None. Returns
+    (B, f, g, 16) with row k1 of each column in natural order; with perm
+    ((B,) int32, g = 1) returns (f, B, 16) with row k1 of column b at
+    [k1, perm[b]]. Launches kernel 1 on a CUDA tensor; runs the plain version
+    on a CPU tensor."""
     if not _build.on_card(x, "cg_ntt_level"):
-        return cg_ntt_level_plain(x, stw, inter, ctx)
-    cols, f, _ = x.shape
-    log_f = f.bit_length() - 1
-    if f != 1 << log_f or log_f < 1 or log_f > 10:
-        raise ValueError(f"cg_ntt_level: f = {f} must be a power of two in [2, 1024]")
-    _build.check_tensor(x, (cols, f, NLIMBS), "x", x.device)
+        return cg_ntt_level_plain(x, stw, inter, ctx, perm)
+    B, f, g, _ = x.shape
+    log_f, log_g = f.bit_length() - 1, g.bit_length() - 1
+    if f != 1 << log_f or log_f < 1 or log_f > 9 or g != 1 << log_g:
+        raise ValueError(f"cg_ntt_level: f = {f} must be a power of two in [2, 512], "
+                         f"and g = {g} a power of two")
+    _build.check_tensor(x, (B, f, g, NLIMBS), "x", x.device)
     _build.check_tensor(stw, (log_f, f // 2, NLIMBS), "stw", x.device)
-    g = 1
     if inter is not None:
-        g = inter.shape[0]
         _build.check_tensor(inter, (g, f, NLIMBS), "inter", x.device)
+    if perm is not None:
+        if g != 1:
+            raise ValueError("cg_ntt_level: perm is for the last level (g = 1)")
+        _build.check_tensor(perm, (B,), "perm", x.device)
     lib = _build.load("ntt_cg", _SIG)
-    consts = _build.field_consts(ctx.p_int)
-    y = torch.empty_like(x)
+    y = torch.empty((f, B, NLIMBS) if perm is not None else (B, f, g, NLIMBS),
+                    dtype=torch.int32, device=x.device)
     err = lib.cg_ntt_level(
         x.data_ptr(), y.data_ptr(), stw.data_ptr(),
         inter.data_ptr() if inter is not None else None,
-        cols, log_f, g, ctypes.byref(consts), torch.cuda.current_stream(x.device).cuda_stream,
+        perm.data_ptr() if perm is not None else None,
+        B * g, log_f, log_g, LEVEL_THREADS, ctypes.byref(_build.field_consts(ctx.p_int)),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cg_ntt_level")
     LAUNCHES["cg_ntt_level"] += 1
@@ -157,9 +177,16 @@ class CgNttPlan:
                     vals.extend(c * r % p for c in cur)
                     cur = [c * w % p for c, w in zip(cur, wks)]
                 inter = ints_to_limbs(vals).reshape(g, f, NLIMBS)
-            levels.append(dict(f=f, g=g, stw=stw, inter=inter, rev=rev))
+            levels.append(dict(f=f, g=g, stw=stw, inter=inter, perm=None))
             size = g
             root = pow(root, f, p)
+        # the last level's column b = (k1, k2, ...) (k1 most significant) goes
+        # to k1 + f0 k2 + f0 f1 k3 + ...: digit reversal over the earlier radices
+        perm = np.zeros(1, dtype=np.int32)
+        for lv in levels[:-1]:
+            perm = (perm[:, None] + perm.size * np.arange(lv["f"], dtype=np.int32)).reshape(-1)
+        if levels:
+            levels[-1]["perm"] = perm
         self.levels = levels
 
     def _tables(self, device):
@@ -173,30 +200,12 @@ class CgNttPlan:
             ]
         return self._dev[device]
 
-    def _level(self, cols: torch.Tensor, tab) -> torch.Tensor:
-        """One level over (cols, f, 16) columns, rows j1 in natural order ->
-        rows k1 in natural order, inter-level twiddle applied."""
-        y = cg_ntt_level(cols, tab["stw"], tab["inter"], self.ctx)
-        return y[:, tab["rev"]]  # slot order -> k1 order
-
-    def _ntt_cols(self, x: torch.Tensor, level_idx: int, tabs) -> torch.Tensor:
-        """x: (B, size, 16) -> NTT of every row block, natural in/out order."""
-        lvl, tab = self.levels[level_idx], tabs[level_idx]
-        f, g = lvl["f"], lvl["g"]
-        B = x.shape[0]
-        # split j = j1*g + j2; one column per (b, j2) holding the f values j1
-        cols = x.reshape(B, f, g, NLIMBS).transpose(1, 2).reshape(B * g, f, NLIMBS).contiguous()
-        y = self._level(cols, tab)
-        if g == 1:
-            return y.reshape(B, f, NLIMBS)
-        # (b, j2, k1) -> (b, k1, j2): the remaining g-point transforms over j2
-        z = y.reshape(B, g, f, NLIMBS).transpose(1, 2).reshape(B * f, g, NLIMBS)
-        z = self._ntt_cols(z, level_idx + 1, tabs)  # (B*f, g[k2], 16)
-        # X[k2 * f + k1]
-        return z.reshape(B, f, g, NLIMBS).transpose(1, 2).reshape(B, g * f, NLIMBS)
-
     def __call__(self, a: torch.Tensor) -> torch.Tensor:
         if tuple(a.shape) != (self.n, NLIMBS):
             raise ValueError(f"{type(self).__name__}: expected ({self.n}, 16), got {tuple(a.shape)}")
-        tabs = self._tables(a.device)
-        return self._ntt_cols(a.reshape(1, self.n, NLIMBS), 0, tabs).reshape(self.n, NLIMBS)
+        x = a.contiguous()
+        for lv, tab in zip(self.levels, self._tables(a.device)):
+            f, g = lv["f"], lv["g"]
+            x = cg_ntt_level(x.reshape(self.n // (f * g), f, g, NLIMBS), tab["stw"], tab["inter"],
+                             self.ctx, tab["perm"])
+        return x.reshape(self.n, NLIMBS)

@@ -13,8 +13,8 @@ bit-reversed order, log2(f) radix-2 decimation-in-time stages (stage s
 pairs rows m = 2^s apart and multiplies by w_2m^pos; stage 0's twiddles are
 all 1, so it multiplies nothing) leave the rows in natural k1 order, and
 the inter-level twiddle root^(k1 j2) is applied when g > 1. The four-step
-recursion (`CgNttPlan._ntt_cols`: the transposes between levels, in torch)
-is shared with the constant-geometry plan; only the level differs.
+recursion (`MrNttPlan._ntt_cols`) runs the transposes between levels in
+torch, as the constant-geometry plan did before its kernel took them over.
 
 Layout between levels: columns outermost, (cols, f, 16) int32. Column c
 takes inter-level twiddle row j2 = c mod g of an (g, f, 16) table. The
@@ -107,7 +107,9 @@ class MrNttPlan(CgNttPlan):
     """Mixed-radix NTT (NTT=pallas); (n, 16) -> (n, 16) Montgomery limbs.
 
     Levels as `PallasNttPlan._plan_levels` (`ntt_pallas.py:299-352`); the
-    recursion over them is CgNttPlan's."""
+    plan cache and device tables are CgNttPlan's, the recursion its own."""
+
+    MAX_LOG_F = 8
 
     def _plan_levels(self):
         p, r = self.ctx.p_int, self.ctx.r_int
@@ -142,5 +144,24 @@ class MrNttPlan(CgNttPlan):
             root = pow(root, f, p)
         self.levels = levels
 
-    def _level(self, cols: torch.Tensor, tab) -> torch.Tensor:
-        return mr_col_ntt(cols, tab["stw"], tab["inter"], self.ctx)
+    def _ntt_cols(self, x: torch.Tensor, level_idx: int, tabs) -> torch.Tensor:
+        """x: (B, size, 16) -> NTT of every row block, natural in/out order."""
+        lvl, tab = self.levels[level_idx], tabs[level_idx]
+        f, g = lvl["f"], lvl["g"]
+        B = x.shape[0]
+        # split j = j1*g + j2; one column per (b, j2) holding the f values j1
+        cols = x.reshape(B, f, g, NLIMBS).transpose(1, 2).reshape(B * g, f, NLIMBS).contiguous()
+        y = mr_col_ntt(cols, tab["stw"], tab["inter"], self.ctx)
+        if g == 1:
+            return y.reshape(B, f, NLIMBS)
+        # (b, j2, k1) -> (b, k1, j2): the remaining g-point transforms over j2
+        z = y.reshape(B, g, f, NLIMBS).transpose(1, 2).reshape(B * f, g, NLIMBS)
+        z = self._ntt_cols(z, level_idx + 1, tabs)  # (B*f, g[k2], 16)
+        # X[k2 * f + k1]
+        return z.reshape(B, f, g, NLIMBS).transpose(1, 2).reshape(B, g * f, NLIMBS)
+
+    def __call__(self, a: torch.Tensor) -> torch.Tensor:
+        if tuple(a.shape) != (self.n, NLIMBS):
+            raise ValueError(f"{type(self).__name__}: expected ({self.n}, 16), got {tuple(a.shape)}")
+        tabs = self._tables(a.device)
+        return self._ntt_cols(a.reshape(1, self.n, NLIMBS), 0, tabs).reshape(self.n, NLIMBS)

@@ -101,7 +101,9 @@ class ParamsIPA:
 
     def _write_raw(self, path: str) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        # a name of this process's own: two processes that write the same
+        # params never write into one file, and each publishes a whole one
+        tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             f.write(self.k.to_bytes(4, "little"))
             for pt in self.g + self.g_lagrange + [self.w, self.u]:

@@ -3,7 +3,7 @@ BenchCircuit proofs of one tree of this repository, so that two trees (a
 parent commit unpacked beside the checkout, and the checkout) can be read on
 one card in one run.
 
-    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted [--sweep]] [--proofs]
+    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--sweep] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -12,7 +12,8 @@ shape and, with `--proofs`, per proof:
 - the kernels alone at the k = 14 commit shape (M = 3, n = 2^14 + 1, c = 4)
   and at M = 2, n = 2^15, c = 8 (bases of the k = 14 params, scalars from a
   numpy seed): the median CUDA-event time of each kernel over 5 warm
-  launches, the sha256 of the bucket tensor (the bytes kernel 2 writes, in the
+  launches and its device time (`device_ms`: per call of calls replayed from
+  one CUDA graph, without the host's launch time), the sha256 of the bucket tensor (the bytes kernel 2 writes, in the
   first port's (rows, B, 3, 16, T) order whatever the tree's layout) and
   of the window sums as affine points (the group elements kernels 3 and 4
   give, whatever their projective coordinates);
@@ -20,8 +21,9 @@ shape and, with `--proofs`, per proof:
   n = 2^16 + 1 on the k = 16 params' bases (g ++ [w]), for uniform scalars
   below q with the edge scalars in the first rows, and for scalars below
   2^127 (windows 8-15 empty) with zero rows: the median CUDA-event time of
-  kernels 5, 6 and 7 and of the pre-stage, the sorted route and the bucket
-  route (each route ending in its host readback), the sha256 of kernel 5's
+  kernels 5, 6 and 7 (and their device times) and of the pre-stage, the
+  sorted route and the bucket route (each route ending in its host
+  readback), the sha256 of kernel 5's
   bucket tensor (nw, W, KB, 3, 16) and of kernel 6's window sums as affine
   points, whether kernels 5 and 6 equal their plain versions (canonical
   values) and whether the sorted MSM equals the bucket MSM; with `--sweep`
@@ -29,6 +31,22 @@ shape and, with `--proofs`, per proof:
   at each geometry of ACCUM_SWEEP and FOLD_SWEEP on the uniform scalars,
   each checked against the default geometry's buckets (bit for bit) or
   window sums (as affine points);
+- with `--ntt`, in place of the bucket shapes: the constant-geometry NTT
+  (kernel 1) on Fp at 2^14 and 2^16, forward, on values from a numpy seed:
+  the median CUDA-event time and the device time of kernel 1 at each level
+  of the plan (in the tree's own level contract: (cols, f) columns before
+  the redesign, (B, f, g) after it) and of the whole transform, the device
+  kernels one transform
+  launches (a torch.profiler count: kernel 1's launches and any torch copy
+  around them) and the sha256 of the transform's output limbs, which must be
+  equal on the parent and the change; with `--sweep` (trees that have
+  LEVEL_THREADS), the device time of every level at each LEVEL_SWEEP block
+  size and of the whole transform at each MAX_LOG_F of NTT_LOG_F_SWEEP, each
+  output checked
+  against the default's (bit for bit at another block size; as canonical
+  values at another MAX_LOG_F, whose levels leave other representatives); and, to show that the kernels it leaves alone keep
+  their times, kernel 8 at the first level of its 2^16 plan and kernels 9
+  and 10 through the profiling tool's `tilemul` at 2^18 elements;
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -59,6 +77,9 @@ ACCUM_SWEEP = ((1, 32), (2, 64), (4, 64), (4, 128), (8, 64), (8, 128), (16, 64),
 # (l, threads) of kernel 6: segments of 2^l buckets, 1-32 blocks a window
 FOLD_SWEEP = ((2, 256), (3, 128), (3, 256), (4, 64), (4, 128), (4, 256), (5, 32), (5, 64),
               (5, 128))
+# threads a block of kernel 1 (f/2 a column), and the largest level size 2^MAX_LOG_F
+LEVEL_SWEEP = (32, 64, 128, 256, 512)
+NTT_LOG_F_SWEEP = (6, 7, 8, 9)
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -75,6 +96,32 @@ def time_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The card's time per call of fn(): `reps` calls captured in one CUDA
+    graph, its replay timed by CUDA events. Unlike an event pair around one
+    call it leaves out the host's launch time, which for a kernel of tens of
+    microseconds is most of the event time; what remains between the
+    kernels is the graph's launch gap of about a microsecond."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def emit(obj) -> None:
@@ -139,6 +186,9 @@ def sorted_section(params16, msm_bucket, msm_sorted, dev, rng, sweep: bool = Fal
                 "msm_sorted_accum": time_ms(accum),
                 "msm_sorted_fold": time_ms(fold),
                 "msm_sorted_horner": time_ms(lambda: msm_sorted.msm_sorted_horner(wk, cc)),
+                "device": {"msm_sorted_accum": device_ms(accum, 5), "msm_sorted_fold": device_ms(fold, 5),
+                           "msm_sorted_horner": device_ms(
+                               lambda: msm_sorted.msm_sorted_horner(wk, cc), 5)},
                 "route_sorted": time_ms(lambda: msm_sorted.msm_sorted(canon, bases)),
                 "route_bucket": time_ms(lambda: msm_bucket.msm_bucket_many(canon[None], bases, mont=False)),
             }
@@ -159,10 +209,108 @@ def sorted_section(params16, msm_bucket, msm_sorted, dev, rng, sweep: bool = Fal
                 msm_sorted.ACCUM_GEOMETRY, msm_sorted.FOLD_GEOMETRY = default
 
 
+def ntt_section(dev, rng, sweep: bool = False) -> None:
+    """Kernel 1 per level and the whole CG transform at 2^14 and 2^16 (see
+    the module's docstring); the modules are the tree's own."""
+    from halo2_tpu_torch.curves import Pallas
+    from halo2_tpu_torch.fields import Fp
+    from halo2_tpu_torch.ops import ntt_cg, ntt_mr, tile_bench
+    from halo2_tpu_torch.ops.curve import CurveCtx
+    from halo2_tpu_torch.ops.field import FieldCtx, from_mont
+    from halo2_tpu_torch.tools import profile_kernels
+
+    ctx = FieldCtx(Fp)
+    p = Fp.MODULUS
+    contract = "B,f,g" if hasattr(ntt_cg, "LEVEL_THREADS") else "cols,f"
+
+    def level_fn(x, lv, tab):
+        f, g = lv["f"], lv["g"]
+        n = x.shape[0]
+        if contract == "cols,f":
+            xl = x.reshape(n // f, f, 16)
+            return lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], ctx)
+        xl = x.reshape(n // (f * g), f, g, 16)
+        return lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], ctx, tab["perm"])
+
+    def digest(y):
+        return hashlib.sha256(y.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    def kernels_launched(fn):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    for log_n in (14, 16):
+        n = 1 << log_n
+        omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - log_n), p)
+        limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+        limbs[:, 15] &= 0x3FFF  # below p
+        x = ctx.to_mont(torch.as_tensor(limbs.astype(np.int32), device=dev))
+        plan = ntt_cg.CgNttPlan(Fp, log_n, omega)
+        tabs = plan._tables(dev)
+        y = plan(x)
+        emit({"ntt_log_n": log_n, "contract": contract,
+              "levels": [(lv["f"], lv["g"]) for lv in plan.levels],
+              "level_ms": [time_ms(level_fn(x, lv, tab)) for lv, tab in zip(plan.levels, tabs)],
+              "level_device_ms": [device_ms(level_fn(x, lv, tab)) for lv, tab in zip(plan.levels, tabs)],
+              "transform_ms": time_ms(lambda: plan(x)),
+              "transform_device_ms": device_ms(lambda: plan(x)),
+              "device_kernels_per_transform": kernels_launched(lambda: plan(x)),
+              "output_sha256": digest(y)})
+        if not (sweep and contract == "B,f,g"):
+            continue
+        default = ntt_cg.LEVEL_THREADS
+        try:
+            for threads in LEVEL_SWEEP:
+                ntt_cg.LEVEL_THREADS = threads
+                emit({"sweep": "cg_ntt_level", "log_n": log_n, "threads": threads,
+                      "same_output": torch.equal(plan(x), y),
+                      "level_device_ms": [device_ms(level_fn(x, lv, tab))
+                                          for lv, tab in zip(plan.levels, tabs)],
+                      "transform_device_ms": device_ms(lambda: plan(x))})
+        finally:
+            ntt_cg.LEVEL_THREADS = default
+        saved = ntt_cg.CgNttPlan.MAX_LOG_F
+        try:
+            for log_f in NTT_LOG_F_SWEEP:
+                ntt_cg.CgNttPlan.MAX_LOG_F = log_f
+                other = ntt_cg.CgNttPlan(Fp, log_n, omega)
+                emit({"sweep": "MAX_LOG_F", "log_n": log_n, "max_log_f": log_f,
+                      "levels": [(lv["f"], lv["g"]) for lv in other.levels],
+                      "same_values": torch.equal(from_mont(other(x), ctx), from_mont(y, ctx)),
+                      "transform_device_ms": device_ms(lambda: other(x))})
+        finally:
+            ntt_cg.CgNttPlan.MAX_LOG_F = saved
+    # the kernels this tree's NTT work leaves alone: kernel 8, kernels 9 and 10
+    mr = ntt_mr.MrNttPlan(Fp, 16, omega)
+    lv, tab = mr.levels[0], mr._tables(dev)[0]
+    xl = x.reshape(n // lv["f"], lv["f"], 16)
+    tiles = profile_kernels.tilemul(1 << 18, device=dev)
+    cc = CurveCtx(Pallas)
+
+    def mr():
+        return ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], ctx)
+
+    def mul():
+        return tile_bench.tile_mul(tiles["a"], tiles["b"], cc.fctx)
+
+    def padd():
+        return tile_bench.tile_padd(*tiles["pts"], cc)
+
+    emit({"other_kernels_ms": {"mr_col_ntt": time_ms(mr), "tile_mul": tiles["mul_ms"],
+                               "tile_padd": tiles["padd_ms"]},
+          "other_kernels_device_ms": {"mr_col_ntt": device_ms(mr), "tile_mul": device_ms(mul),
+                                      "tile_padd": device_ms(padd)}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--sorted", action="store_true")
+    ap.add_argument("--ntt", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--proofs", action="store_true")
     ns = ap.parse_args(argv)
@@ -195,6 +343,9 @@ def main(argv=None) -> int:
         ("k14_commit", (1 << 14) + 1, 3, params14.g + [params14.w]),
         ("c8_M2", 1 << 15, 2, params14.g + params14.g_lagrange),
     )
+    if ns.ntt:
+        ntt_section(dev, np.random.default_rng(20261018), ns.sweep)
+        bucket_shapes = ()
     if ns.sorted:
         sorted_section(ParamsIPA.cached(Vesta, 16, device=dev), msm_bucket, msm_sorted, dev, rng,
                        ns.sweep)
@@ -214,11 +365,13 @@ def main(argv=None) -> int:
         rk = msm_bucket.msm_lane_reduce(fk, cc)
         wins = cc.decode_points(PointVec(rk[:, 0], rk[:, 1], rk[:, 2]))
         affine = repr([p.xy for p in wins]).encode()
-        ms = {
-            "msm_accum": time_ms(lambda: msm_bucket.msm_accum(scal, db.px, db.py, c, nwin, T, cc)),
-            "msm_fold": time_ms(lambda: msm_bucket.msm_fold(bk, cc)),
-            "msm_lane_reduce": time_ms(lambda: msm_bucket.msm_lane_reduce(fk, cc)),
+        calls = {
+            "msm_accum": lambda: msm_bucket.msm_accum(scal, db.px, db.py, c, nwin, T, cc),
+            "msm_fold": lambda: msm_bucket.msm_fold(bk, cc),
+            "msm_lane_reduce": lambda: msm_bucket.msm_lane_reduce(fk, cc),
         }
+        ms = {name: time_ms(fn) for name, fn in calls.items()}
+        ms["device"] = {name: device_ms(fn, 5) for name, fn in calls.items()}
         if bk.shape[-1] != T:  # (rows, T, B, 3, 16) -> the first port's (rows, B, 3, 16, T)
             bk = bk.permute(0, 2, 3, 4, 1)
         emit({"shape": label, "M": M, "n": n, "c": c, "nwin": nwin, "T": T, "ms": ms,

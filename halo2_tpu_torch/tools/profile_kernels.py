@@ -12,6 +12,10 @@ Sections:
   uniform 16-bit limbs, values up to 2^256 and so outside [0, 2p), where both
   packages' arithmetic is defined; this one draws canonical values below
   2^254 < p from a numpy seed.
+- `oplat [n]`: the latency of one field operation of `csrc/field.cuh` on one
+  thread, each of `tile_bench.OPS` run n times in a dependent chain (default
+  256) on Pasta's Fq: clock cycles per operation, the result checked against
+  the plain version (the card's own `mont_mul` / `add_mod` / `sub_mod`).
 - `msm_accum [K]`: the bucket MSM's kernels 2-4 (`ops/msm_bucket.py`)
   separately, at 2^K points (default 16) over 2^10 random Pallas bases
   repeated.
@@ -41,6 +45,7 @@ from ..curves import Pallas
 from ..fields import Fq
 from ..ops import msm_bucket, tile_bench
 from ..ops.curve import CurveCtx
+from ..ops.field import FieldCtx
 from ..ops.msm import MSMBases
 from ..ops.ntt_mr import MrNttPlan
 from ..poly.ipa import resolve_device
@@ -100,6 +105,21 @@ def tilemul(n: int = 128 * 2048, *, device, seed: int = 0, iters: int = 10) -> d
     return dict(n=n, a=a, b=b, pts=pts, mul_out=mul_out, padd_out=padd_out,
                 mul_ms=mul_s * 1e3, padd_ms=padd_s * 1e3,
                 ns_per_product=mul_s / products * 1e9, ns_per_point=padd_s / n * 1e9)
+
+
+def oplat(n: int = 256, *, device, seed: int = 3) -> dict:
+    """Cycles per operation of each of tile_bench.OPS in a chain of n."""
+    ctx = FieldCtx(Fq)
+    rng = np.random.default_rng(seed)
+    a, b = _canon(rng, 1, device)[0], _canon(rng, 1, device)[0]
+    out = {}
+    for op in tile_bench.OPS:
+        got, cycles = tile_bench.op_chain(a, b, n, op, ctx)
+        if not torch.equal(got, tile_bench.op_chain_plain(a, b, n, op, ctx)):
+            raise AssertionError(f"op_chain {op}: kernel != plain")
+        out[op] = None if cycles is None else cycles / n
+        print(f"{op}: {out[op]} cycles per operation, chain of {n}", flush=True)
+    return out
 
 
 def msm_accum(K: int = 16, *, device) -> dict:
@@ -181,8 +201,8 @@ def sortgather(log_n: int = 20, *, device) -> dict:
     return out
 
 
-SECTIONS = {"tilemul": tilemul, "msm_accum": msm_accum, "ntt_compile": ntt_compile,
-            "sortgather": sortgather}
+SECTIONS = {"tilemul": tilemul, "oplat": oplat, "msm_accum": msm_accum,
+            "ntt_compile": ntt_compile, "sortgather": sortgather}
 
 
 def main(argv=None) -> None:

@@ -27,7 +27,7 @@ from halo2_tpu_torch.curves import Vesta
 from halo2_tpu_torch.interop import curve_of, msm_bases, point
 from halo2_tpu_torch.ops import msm as msm_mod
 from halo2_tpu_torch.ops import msm_sorted as ms
-from halo2_tpu_torch.ops.curve import CurveCtx, _zero_reps, padd, pdouble
+from halo2_tpu_torch.ops.curve import CurveCtx, PointVec, _zero_reps, padd, pdouble
 from halo2_tpu_torch.ops.field import ints_to_limbs
 from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
 from halo2_tpu_torch.plonk.prover import create_proof
@@ -257,3 +257,60 @@ def test_sorted_kernels_match_plain_on_card():
         ctx = cc.fctx
         assert torch.equal(ctx.from_mont(got.reshape(-1, 16)), ctx.from_mont(want.reshape(-1, 16)))
     assert same_point(ms.msm_sorted(canon(vals).cuda(), bases), jmsm_host(vals, jpts, JVesta))
+
+
+def horner_windows(case: str, device="cpu"):
+    """16 projective window sums (16, 3, 16) of the port's Vesta for kernel 7's
+    edge cases, and the host point sum_w 2^(16 w) W_w they must give."""
+    g = Vesta.generator()
+    rng = np.random.default_rng(sum(map(ord, case)))
+    pts = [g.mul(int(rng.integers(1, 1 << 62))) for _ in range(16)]
+    ident = Vesta.identity()
+    if case == "identity_windows":  # the top window, a run below it and the bottom
+        for w in (15, 14, 9, 8, 7, 0):
+            pts[w] = ident
+    elif case == "all_identity":
+        pts = [ident] * 16
+    elif case == "equal_windows":  # acc = 2^16 W_15 meets W_14 = 2^16 W_15: P + P
+        pts[14] = pts[15].mul(1 << 16)
+    elif case == "opposite_windows":  # acc = 2^16 W_15 meets -(2^16 W_15): the identity
+        pts[14] = -pts[15].mul(1 << 16)
+    cc = CurveCtx(Vesta)
+    pv = cc.encode_points(pts, device)
+    # projective: scale each point by its own lambda (Z != 1), and give one
+    # identity the other zero representative Z = p
+    lam = cc.fctx.consts([int(rng.integers(2, 1 << 62)) for _ in range(16)], device)
+    wins = torch.stack([cc.fctx.mul(t, lam) for t in pv], dim=1)
+    if case == "identity_windows":
+        wins[9, 2] = torch.as_tensor(ints_to_limbs([Vesta.p()]))[0].to(device)
+    want = ident
+    for w in range(15, -1, -1):
+        want = want.mul(1 << 16) + pts[w]
+    return wins.contiguous(), want
+
+
+HORNER_CASES = ("identity_windows", "all_identity", "equal_windows", "opposite_windows")
+
+
+def test_horner_plain_edge_windows():
+    """The plain Horner step (kernel 7's plain version) on identity, equal and
+    opposite windows, against host point arithmetic: the four cases as one
+    batch of chains, and the identity windows alone, which give the same limbs."""
+    cc = CurveCtx(Vesta)
+    cases = [horner_windows(case) for case in HORNER_CASES]
+    got = ms.msm_sorted_horner_plain(torch.stack([w for w, _ in cases], 1), cc)
+    assert cc.decode_points(PointVec(got[:, 0], got[:, 1], got[:, 2])) == [want for _, want in cases]
+    assert torch.equal(ms.msm_sorted_horner_plain(cases[0][0], cc), got[0])
+
+
+@pytest.mark.gpu
+def test_horner_kernel_edge_windows_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU build")
+    cc = CurveCtx(Vesta)
+    for case in HORNER_CASES + ("random",):
+        wins, _ = horner_windows(case, "cuda")
+        got = ms.msm_sorted_horner(wins, cc)
+        want = ms.msm_sorted_horner_plain(wins, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), case

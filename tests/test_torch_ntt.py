@@ -7,8 +7,11 @@ the port's `cg_ntt_level` runs its plain torch version, so these tests drive
 the level structure, slot order, gathers and inter-level twiddles that the
 CUDA kernel sits in. MAX_LOG_F is lowered so that several levels run, and at
 k = 11 a level has g = 256 columns per inter-twiddle table. Comparisons are
-exact on canonical values. The kernel itself is held against the plain
-version on the card by the `gpu` test below and by chip_smoke.py.
+exact on canonical values. The plain level's contract (strided load of the
+(B, f, g) columns, natural-order store, the last level's digit-reversed
+placement) is held to the composition the first port ran in torch around
+the level (transpose, level, rev gather). The kernel itself is held against
+the plain version, bit for bit, by the `gpu` test below and by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -25,8 +28,8 @@ from halo2_tpu.poly.domain import EvaluationDomain as JDomain
 from halo2_tpu_torch.fields import Fq
 from halo2_tpu_torch.interop import fvec, limbs_tensor
 from halo2_tpu_torch.ops import ntt_cg
-from halo2_tpu_torch.ops.field import FieldCtx, from_mont
-from halo2_tpu_torch.ops.ntt import NttPlan
+from halo2_tpu_torch.ops.field import FieldCtx, add_mod, from_mont, ints_to_limbs, mont_mul, sub_mod
+from halo2_tpu_torch.ops.ntt import NttPlan, bitrev_perm
 from halo2_tpu_torch.ops.ntt_cg import CgNttPlan, _cg_stage_tables
 from halo2_tpu_torch.poly import COEFF, LAGRANGE, Polynomial
 from halo2_tpu_torch.poly.domain import EvaluationDomain
@@ -85,6 +88,55 @@ def test_inverse_plan_inverts():
     assert (canon_t(back) == canon_t(a)).all()
 
 
+def _old_level(cols, stw, inter, ctx):
+    """The first port's plain level on (cols, f, 16) columns, slot order out,
+    followed by its wrapper's rev gather."""
+    n, f, _ = cols.shape
+    for s in range(stw.shape[0]):
+        lo, hi = cols[:, : f // 2], cols[:, f // 2 :]
+        t = mont_mul(hi, stw[s], ctx)
+        cols = torch.stack([add_mod(lo, t, ctx), sub_mod(lo, t, ctx)], dim=2).reshape(n, f, 16)
+    if inter is not None:
+        cols = mont_mul(cols, inter[torch.arange(n) % inter.shape[0]], ctx)
+    return cols[:, torch.as_tensor(bitrev_perm(f.bit_length() - 1))]
+
+
+@pytest.mark.parametrize("log_f,B,g", [(2, 3, 4), (4, 2, 8), (6, 2, 2), (8, 1, 2)])
+def test_plain_level_contract_matches_old_composition(log_f, B, g, monkeypatch):
+    """Strided load of column (b, j2) from (B, f, g), natural-order store to
+    (B, f, g); with g = 1 and perm, row k1 of column b lands at [k1, perm[b]]."""
+    f = 1 << log_f
+    ctx = FieldCtx(Fq)
+    p = Fq.MODULUS
+    monkeypatch.setattr(CgNttPlan, "MAX_LOG_F", log_f)
+    log_n = log_f + g.bit_length() - 1
+    plan = CgNttPlan(Fq, log_n, pow(Fq.ROOT_OF_UNITY, 1 << (Fq.S - log_n), p))
+    stw, inter = (torch.as_tensor(plan.levels[0][name]) for name in ("stw", "inter"))
+    assert tuple(stw.shape) == (log_f, f // 2, 16) and tuple(inter.shape) == (g, f, 16)
+    x = limbs_tensor(mont_input(B * f * g, seed=log_f)).reshape(B, f, g, 16)
+    got = ntt_cg.cg_ntt_level_plain(x, stw, inter, ctx)
+    old = _old_level(x.transpose(1, 2).reshape(B * g, f, 16), stw, inter, ctx)
+    assert torch.equal(got, old.reshape(B, g, f, 16).transpose(1, 2))
+    # the last level's placement: no inter table, perm a permutation of the columns
+    perm = torch.as_tensor(np.random.default_rng(log_f).permutation(B * g).astype(np.int32))
+    x1 = x.reshape(B * g, f, 1, 16)
+    got = ntt_cg.cg_ntt_level(x1, stw, None, ctx, perm)
+    old = _old_level(x1.reshape(B * g, f, 16), stw, None, ctx)
+    assert tuple(got.shape) == (f, B * g, 16)
+    assert torch.equal(got[:, perm.long()], old.transpose(0, 1))
+
+
+def test_last_level_perm_is_digit_reversal(monkeypatch):
+    """2^8 at MAX_LOG_F = 3: levels f = 8, 8, 4; the last level's column
+    b = k1 * 8 + k2 goes to k1 + 8 k2, row k3 of it to k3 * 64 + that."""
+    monkeypatch.setattr(CgNttPlan, "MAX_LOG_F", 3)
+    p = Fq.MODULUS
+    plan = CgNttPlan(Fq, 8, pow(Fq.ROOT_OF_UNITY, 1 << (Fq.S - 8), p))
+    assert [(lv["f"], lv["g"]) for lv in plan.levels] == [(8, 32), (8, 4), (4, 1)]
+    assert all(lv["perm"] is None for lv in plan.levels[:-1])
+    assert list(plan.levels[-1]["perm"]) == [k1 + 8 * k2 for k1 in range(8) for k2 in range(8)]
+
+
 def test_level_wrapper_checks_device():
     ctx = FieldCtx(Fq)
     x = torch.zeros((2, 4, 16), dtype=torch.int32, device="meta")
@@ -127,19 +179,35 @@ def test_domain_transforms_match_jax():
     assert (canon_t(tv.vec.vals) == canon_j(jv.vec.vals)).all()
 
 
+def edge_input(n: int, seed: int) -> np.ndarray:
+    """(n, 16) Montgomery limbs: 0, 1, p - 1 and 2p - 1 (the lazy domain's
+    ends) in the first rows, uniform values below 2p after them."""
+    p = Fq.MODULUS
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, p - 1, 2 * p - 1] + [int.from_bytes(rng.bytes(32), "little") % (2 * p)
+                                       for _ in range(n - 4)]
+    return ints_to_limbs(vals)
+
+
 @pytest.mark.gpu
 def test_cg_level_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU build")
     ctx = FieldCtx(Fq)
     p = Fq.MODULUS
-    for log_n in (10, 14):
-        plan = CgNttPlan(Fq, log_n, pow(Fq.ROOT_OF_UNITY, 1 << (Fq.S - log_n), p))
-        for lv, tab in zip(plan.levels, plan._tables("cuda")):
-            x = limbs_tensor(mont_input((1 << log_n), seed=log_n), "cuda")
-            x = x.reshape(-1, lv["f"], 16)
-            got = ntt_cg.cg_ntt_level(x, tab["stw"], tab["inter"], ctx)
-            want = ntt_cg.cg_ntt_level_plain(x, tab["stw"], tab["inter"], ctx)
-            torch.cuda.synchronize()
-            assert torch.equal(from_mont(got.reshape(-1, 16), ctx),
-                               from_mont(want.reshape(-1, 16), ctx))
+    for log_n in (10, 14, 16):
+        n = 1 << log_n
+        w = pow(Fq.ROOT_OF_UNITY, 1 << (Fq.S - log_n), p)
+        for omega in (w, pow(w, -1, p)):
+            plan = CgNttPlan(Fq, log_n, omega)
+            for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables("cuda"))):
+                f, g = lv["f"], lv["g"]
+                x = torch.as_tensor(edge_input(n, seed=log_n + li), device="cuda")
+                x = x.reshape(n // (f * g), f, g, 16)
+                got = ntt_cg.cg_ntt_level(x, tab["stw"], tab["inter"], ctx, tab["perm"])
+                want = ntt_cg.cg_ntt_level_plain(x, tab["stw"], tab["inter"], ctx, tab["perm"])
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"2^{log_n} level {li}"
+            # the whole transform: natural order, the radix-2 reference's values
+            a = torch.as_tensor(edge_input(n, seed=log_n), device="cuda")
+            assert torch.equal(from_mont(plan(a), ctx), from_mont(NttPlan(Fq, log_n, omega)(a), ctx))

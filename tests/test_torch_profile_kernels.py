@@ -88,6 +88,7 @@ def test_tile_padd_plain_matches_jax_mixed_padd():
     (["msm_accum", "5"], "lane_reduce first call"),
     (["ntt_compile", "4", "6"], "k=6: set-up"),
     (["sortgather", "8"], "GB/s"),
+    (["oplat", "3"], "cycles per operation"),
 ])
 def test_profile_sections_run_on_cpu(argv, expect, capsys):
     profile_kernels.main(argv + ["--device", "cpu"])
@@ -107,6 +108,27 @@ def test_tilemul_section_returns_plain_results():
     ctx = CurveCtx(Pallas).fctx
     assert torch.equal(res["mul_out"], tile_bench.tile_mul_plain(res["a"], res["b"], ctx))
     assert res["ns_per_product"] > 0 and res["ns_per_point"] > 0
+
+
+def test_op_chain_plain_matches_host_arithmetic():
+    """The latency probe's plain chains: x <- x * b / R, x + b, x - b mod p."""
+    ctx = CurveCtx(Pallas).fctx
+    p = ctx.p_int
+    a, b = (limbs_tensor(c)[0] for c in canonical(2, 2))
+    ia, ib = (limbs_to_ints(from_mont(t[None], ctx))[0] for t in (a, b))
+    want = {"fe_mul": ia * ib ** 3 % p, "fe_add_cc": (ia + 3 * ib) % p, "fe_sub": (ia - 3 * ib) % p}
+    for op, value in want.items():
+        got = tile_bench.op_chain_plain(a, b, 3, op, ctx)
+        assert limbs_to_ints(from_mont(got[None], ctx))[0] == value
+    assert tile_bench.op_chain(a, b, 3, "fe_mul_cc", ctx)[1] is None
+
+
+@pytest.mark.gpu
+def test_op_chain_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU build")
+    lat = profile_kernels.oplat(64, device=torch.device("cuda"))  # checks each op against plain
+    assert all(c > 0 for c in lat.values())
 
 
 @pytest.mark.gpu

@@ -167,3 +167,33 @@ def _jax_bench_k10_sha256() -> str:
 
 if __name__ == "__main__":
     print(_jax_bench_k10_sha256())
+
+
+def test_params_cache_write_uses_a_per_process_temp_name(tmp_path, monkeypatch):
+    """`_write_raw` writes through a temporary file named for its process, so
+    a second process writing the same params never writes into the file the
+    first one publishes (the name it would have shared is left alone here),
+    and what it publishes reads back whole."""
+    params = ParamsIPA.cached(Vesta, 3, device="cpu")
+    path = str(tmp_path / "ipa-Vesta-k3.raw")
+    shared = path + ".tmp"
+    with open(shared, "wb") as f:
+        f.write(b"another writer's partial file")
+    published = []
+    replace = os.replace
+
+    def spy(src, dst):
+        published.append((src, os.path.getsize(src)))
+        replace(src, dst)
+
+    monkeypatch.setattr(os, "replace", spy)
+    for pid in (4242, 4343):
+        monkeypatch.setattr(os, "getpid", lambda pid=pid: pid)
+        params._write_raw(path)
+    size = 4 + 64 * (2 * 8 + 2)
+    assert published == [(f"{path}.4242.tmp", size), (f"{path}.4343.tmp", size)]
+    with open(shared, "rb") as f:
+        assert f.read() == b"another writer's partial file"
+    back = ParamsIPA._read_raw(Vesta, path, "cpu")
+    assert (back.k, back.g, back.g_lagrange, back.w, back.u) == (
+        params.k, params.g, params.g_lagrange, params.w, params.u)
