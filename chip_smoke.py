@@ -6,12 +6,13 @@ Builds the ten CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
 main path's shapes and times both (the bucket MSM's kernels 2-4 at both
 window widths: c = 4 at M = 3, n = 2^14 + 1 and c = 8 at M = 2, n = 2^15,
-each MSM also against msm_host; kernel 1 bit for bit at every level of the
-2^14 and 2^16 plans, both directions, on edge inputs 0, 1, p - 1 and 2p - 1
-beside values below 2p, and timed at every level of both; kernel 7 also on
-identity, equal and opposite windows), reproduces the golden proof bytes of
-MulCircuit (k = 4), and drives four paths, each with the kernels' launch
-counters set to 0 just before it and read just after:
+each MSM also against msm_host, kernel 4 bit for bit, also on parts that hold
+the identity, a pair P, P and a pair P, -P; kernel 1 bit for bit at every
+level of the 2^14 and 2^16 plans, both directions, on edge inputs 0, 1,
+p - 1 and 2p - 1 beside values below 2p, and timed at every level of both;
+kernel 7 also on identity, equal and opposite windows), reproduces the
+golden proof bytes of MulCircuit (k = 4), and drives four paths, each with
+the kernels' launch counters set to 0 just before it and read just after:
 
 * k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
   verify_proof for BenchCircuit, which runs kernels 1-4; the proof has the
@@ -39,9 +40,12 @@ counters set to 0 just before it and read just after:
   VK and the proof bytes of the default route; then BenchCircuit at k = 10
   proved under NTT=pallas and NTT=mxu (bf16 Toeplitz products on the tensor
   cores), each to the JAX package's bytes. Before the paths, kernel 8 is
-  held against its plain version at every level of the 2^14, 2^16 and 2^18
-  plans on Fp (2^18 has a second factor of 1024) and 2^14 on FrBn, and the
-  Toeplitz plan at 2^14 in both MXU_DTYPEs against its int64 version.
+  held against its plain version bit for bit, on the edge inputs, at every
+  level of both 2^14, 2^16 and 2^18 plans on Fp (2^18 has a second factor
+  of 1024) and of both 2^14 plans on FrBn; a transform at 2^14 and 2^16 must
+  launch its two levels and no other device kernel (a torch.profiler count),
+  and is timed beside kernel 1's; the Toeplitz plan at 2^14 is held in both
+  MXU_DTYPEs against its int64 version.
 * the profiling tool: `halo2_tpu_torch.tools.profile_kernels.tilemul` over
   2^18 elements, which runs kernels 9 and 10 (eight chained Montgomery
   products per element; one mixed addition per point); both are then held
@@ -281,12 +285,27 @@ def main() -> int:
             prods += int((inter != one).any(-1).sum(-1)[torch.arange(cols, device=dev) % g].sum())
         return (*bound(nbytes, mont_mul_instrs(q) * prods), prods)
 
-    def edge_mont(n):
-        """(n, 16) Montgomery limbs of Fp: 0, 1, p - 1 and 2p - 1 (the ends of
-        the lazy domain [0, 2p)) first, uniform values below 2p after them."""
-        vals = [0, 1, q - 1, 2 * q - 1] + [int.from_bytes(rng.bytes(32), "little") % (2 * q)
+    def edge_mont(n, p=q):
+        """(n, 16) Montgomery limbs mod p (Fp by default): 0, 1, p - 1 and
+        2p - 1 (the ends of the lazy domain [0, 2p)) first, uniform values
+        below 2p after them."""
+        vals = [0, 1, p - 1, 2 * p - 1] + [int.from_bytes(rng.bytes(32), "little") % (2 * p)
                                            for _ in range(n - 4)]
         return torch.as_tensor(ints_to_limbs(vals), device=dev)
+
+    def kernels_launched(fn):
+        """The device kernels one call of fn() launches (a torch.profiler
+        count: kernel launches and any torch copy around them)."""
+        fn()
+        torch.cuda.synchronize()
+        counts = []
+        for _ in range(3):  # a profiler session now and then misses kernels, never invents one
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts.append(sum(1 for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA))
+        return max(counts)
 
     report = {}
 
@@ -379,12 +398,15 @@ def main() -> int:
         x = fctx.to_mont(rand_canon((n,), top))
         fwd = ntt_mr.MrNttPlan(field, log_n, omega)
         inv = ntt_mr.MrNttPlan(field, log_n, pow(omega, -1, p))
-        # every level of both plans: kernel == plain on the same inputs
+        # every level of both plans: kernel == plain, bit for bit, on edge inputs
         for plan in (fwd, inv):
             for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables(dev))):
-                xl = fctx.to_mont(rand_canon((n // lv["f"], lv["f"]), top))
-                yk = ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], fctx)
-                yp = ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], fctx)
+                f, g = lv["f"], lv["g"]
+                xl = edge_mont(n, p).reshape(n // (f * g), f, g, 16)
+                yk = ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], fctx, tab["perm"])
+                yp = ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], fctx, tab["perm"])
+                require(torch.equal(yk, yp),
+                        f"mr_col_ntt {field.__name__} 2^{log_n} level {li}: kernel != plain (limbs)")
                 same("mr_col_ntt", yk, yp, fctx,
                      f"mr_col_ntt {field.__name__} 2^{log_n} level {li}: kernel != plain")
         y = fwd(x)
@@ -395,23 +417,46 @@ def main() -> int:
                 f"mixed-radix NTT {field.__name__} 2^{log_n} != constant-geometry NTT")
         back = fctx.mul(inv(y), fctx.const(pow(n, -1, p), dev))
         require(canon_equal(back, x, fctx), f"inverse mixed-radix NTT 2^{log_n} does not invert")
-        emit({"phase": "ntt_mr", "field": field.__name__, "log_n": log_n, "exact": True,
-              "levels": [(lv["f"], lv["g"]) for lv in fwd.levels],
-              "full_transform_ms": time_ms(lambda: fwd(x)), "cg_full_transform_ms": time_ms(lambda: cg(x))})
+        xe = edge_mont(n, p)
+        require(canon_equal(fwd(xe), cg(xe), fctx),
+                f"mixed-radix NTT {field.__name__} 2^{log_n} on edge inputs != constant-geometry NTT")
+        row = {"phase": "ntt_mr", "field": field.__name__, "log_n": log_n, "exact": True,
+               "levels": [(lv["f"], lv["g"]) for lv in fwd.levels],
+               "full_transform_ms": time_ms(lambda: fwd(x)), "cg_full_transform_ms": time_ms(lambda: cg(x))}
+        if field is Fp and log_n in (14, 16):
+            # a transform is its levels' launches and nothing else: one kernel
+            # a level by the wrapper's count, and no other device kernel in a
+            # profiler trace (which can miss a kernel, so it bounds the count)
+            before = ntt_mr.LAUNCHES["mr_col_ntt"]
+            fwd(x)
+            launched = ntt_mr.LAUNCHES["mr_col_ntt"] - before
+            row["device_kernels_per_transform"] = kernels_launched(lambda: fwd(x))
+            require(launched == len(fwd.levels) and row["device_kernels_per_transform"] <= launched,
+                    f"NTT=pallas 2^{log_n}: {launched} kernel launches and "
+                    f"{row['device_kernels_per_transform']} device kernels a transform, "
+                    f"not its {len(fwd.levels)} levels")
+            row["transform_device_ms"] = device_ms(lambda: fwd(x))
+            row["cg_transform_device_ms"] = device_ms(lambda: cg(x))
+        emit(row)
         if field is Fp and log_n == 16:
             lv, tab = fwd.levels[0], fwd._tables(dev)[0]
             f, g = lv["f"], lv["g"]
             cols = n // f
-            xl = sctx.to_mont(rand_canon((cols, f)))
-            ms = time_ms(lambda: ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx))
-            dev_ms = device_ms(lambda: ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx))
-            plain_ms = time_ms(lambda: ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], sctx), 2)
+            xl = x.reshape(n // (f * g), f, g, 16)
+
+            def level():
+                return ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
+
+            ms = time_ms(level)
+            dev_ms = device_ms(level)
+            plain_ms = time_ms(
+                lambda: ntt_mr.mr_col_ntt_plain(xl, tab["stw"], tab["inter"], sctx, tab["perm"]), 2)
             b_ms, b_by, prods = level_bound(cols, f, tab, g)
             report["mr_col_ntt"] = dict(
                 route="cuda", source="halo2_tpu_torch/csrc/ntt_mr.cu",
                 replaces="halo2_tpu/ops/ntt_pallas.py:392", ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=f"cols={cols} f={f} g={g} (first level of 2^16)",
+                shape=f"B=1 f={f} g={g} (first level of 2^16)",
             )
             emit({"phase": "time", "kernel": "mr_col_ntt", "products": prods, **report["mr_col_ntt"]})
     emit({"phase": "ntt_mr_done", "seconds": time.perf_counter() - t0})
@@ -500,7 +545,27 @@ def main() -> int:
         same("msm_fold", fk, fp, pctx, f"msm_fold n={n}: kernel != plain")
         rk = msm_bucket.msm_lane_reduce(fk, cc)
         rp = msm_bucket.msm_lane_reduce_plain(fk, cc)
+        require(torch.equal(rk, rp), f"msm_lane_reduce n={n}: kernel != plain (limbs)")
         same("msm_lane_reduce", rk, rp, pctx, f"msm_lane_reduce n={n}: kernel != plain")
+        # kernel 4 on edge parts: the identity in lanes 1 and T/2 + 3, lanes 0
+        # and T/2 equal (P + P, the doubling case of the complete addition),
+        # lane T/2 + 2 the negative of lane 2 (P + (-P)), and a row whose
+        # lanes are all the identity
+        ep = fk.clone()
+        idv = cc.identity_vec((1,), dev)
+        ident = torch.stack([idv.x[0], idv.y[0], idv.z[0]])  # (3, 16)
+        h = T // 2
+        ep[:, :, :, 1] = ident
+        ep[:, :, :, h + 3] = ident
+        ep[:, :, :, h] = ep[:, :, :, 0]
+        ep[:, 1, :, h + 2] = pctx.neg(ep[:, 1, :, 2])
+        ep[-1] = ident[:, :, None]
+        ek = msm_bucket.msm_lane_reduce(ep, cc)
+        ekp = msm_bucket.msm_lane_reduce_plain(ep, cc)
+        require(torch.equal(ek, ekp), f"msm_lane_reduce n={n} edge parts: kernel != plain (limbs)")
+        same("msm_lane_reduce", ek, ekp, pctx, f"msm_lane_reduce n={n} edge parts: kernel != plain")
+        require(cc.decode_points(PointVec(ek[-1:, 0], ek[-1:, 1], ek[-1:, 2]))[0].is_identity(),
+                "msm_lane_reduce: a row of identities did not sum to the identity")
         pts = msm_bucket.msm_bucket_many(canon, bases, mont=False)
         t2 = time.perf_counter()
         ints = limbs_to_ints(canon[0].cpu())
@@ -659,7 +724,7 @@ def main() -> int:
         proof_ms[name] += start.elapsed_time(end)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_symbol = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
-                     "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel("}
+                     "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<"}
     traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
                  for name, sym in kernel_symbol.items()}
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None

@@ -486,3 +486,107 @@ __device__ __noinline__ Pt fold_add(const Pt& a, const Pt& b, const FieldConsts&
 }
 
 __device__ __noinline__ Pt fold_dbl(const Pt& a, const FieldConsts& k) { return dbl_skip(a, k); }
+
+// ---- one complete addition on a group of W lanes (kernels 4 and 7) ----
+// Each round of independent products of RCB15 algorithm 7 runs on lanes 0-5
+// of the group at once, a product a lane (fe_mul_cc); lane j's product
+// reaches every lane of the group by shuffles of width W, and every lane
+// makes the additions and subtractions itself, so the group never diverges
+// and every lane ends with the sum. All 32 lanes of the warp take part in
+// each shuffle; lanes 6 .. W-1 of a group multiply operands no one reads.
+
+// word by word a from lane `src` of this thread's group of W lanes
+template <int W = 32>
+__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src, W);
+  return r;
+}
+
+// c ? a : b word by word, in registers (a select of whole structs would go
+// through a local-memory copy)
+__device__ __forceinline__ Fe fe_sel(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
+// pt_add's operations and integers, its 14 general products in three rounds
+// of 6, 2, 6; lanes 3-5 multiply sums (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2),
+// (X1 + Z1)(X2 + Z2). Between rounds 1 and 2 lanes 0-3 each make one of the
+// four sums t0b = 3 t0, y3, t3, t4 (two additions a lane instead of eight in
+// a row), and lane 1 multiplies its own y3 in round 2. `lane` is the
+// thread's lane within its group.
+template <bool kPasta, int W = 32>
+__device__ __forceinline__ Pt warp_add(const Pt& a, const Pt& b, const FieldConsts& k, int lane) {
+  const Fe b3 = fe_from(k.b3);
+  const bool x1 = lane == 0 || lane == 3 || lane == 5, y1 = lane == 1 || lane == 4;
+  const bool y2 = lane == 3;
+  Fe u = fe_sel(x1, a.x, fe_sel(y1, a.y, a.z)), v = fe_sel(x1, b.x, fe_sel(y1, b.y, b.z));
+  const Fe us = fe_add_cc(u, fe_sel(y2, a.y, a.z), k), vs = fe_add_cc(v, fe_sel(y2, b.y, b.z), k);
+  Fe r = fe_mul_cc<kPasta>(fe_sel(lane >= 3, us, u), fe_sel(lane >= 3, vs, v), k);
+  const Fe t0 = shfl_fe<W>(r, 0), t1 = shfl_fe<W>(r, 1), t2 = shfl_fe<W>(r, 2);
+  // lane 0: t0b = (t0 + t0) + t0; lane 1: y3 = r5 - (t0 + t2); lane 2: t3 = r3 - (t0 + t1);
+  // lane 3: t4 = r4 - (t1 + t2)
+  const Fe s = shfl_fe<W>(r, lane == 1 ? 5 : lane == 2 ? 3 : 4);
+  const Fe A = fe_add_cc(fe_sel(lane == 3, t1, t0), fe_sel(lane == 0, t0, fe_sel(lane == 2, t1, t2)), k);
+  const Fe m = fe_sel(lane == 0, fe_add_cc(A, t0, k), fe_sub_cc(s, A, k));
+  r = fe_mul_cc<kPasta>(b3, fe_sel(lane == 0, t2, m), k);
+  const Fe t0b = shfl_fe<W>(m, 0), t3 = shfl_fe<W>(m, 2), t4 = shfl_fe<W>(m, 3);
+  const Fe t2b = shfl_fe<W>(r, 0), y3b = shfl_fe<W>(r, 1);
+  const Fe z3 = fe_add_cc(t1, t2b, k);
+  const Fe t1b = fe_sub_cc(t1, t2b, k);
+  // lanes 0-5: t4 y3b, t3 t1b, y3b t0b, t1b z3, t0b t3, z3 t4
+  u = fe_sel(lane == 0, t4, fe_sel(lane == 1, t3, fe_sel(lane == 2, y3b,
+          fe_sel(lane == 3, t1b, fe_sel(lane == 4, t0b, z3)))));
+  v = fe_sel(lane == 0, y3b, fe_sel(lane == 1, t1b, fe_sel(lane == 2, t0b,
+          fe_sel(lane == 3, z3, fe_sel(lane == 4, t3, t4)))));
+  r = fe_mul_cc<kPasta>(u, v, k);
+  Pt out;
+  out.x = fe_sub_cc(shfl_fe<W>(r, 1), shfl_fe<W>(r, 0), k);
+  out.y = fe_add_cc(shfl_fe<W>(r, 3), shfl_fe<W>(r, 2), k);
+  out.z = fe_add_cc(shfl_fe<W>(r, 5), shfl_fe<W>(r, 4), k);
+  return out;
+}
+
+// The same addition on a group of 4 lanes (kernel 4's first level): rounds 1
+// and 3 run in two halves, products 0-3 on lanes 0-3 and then products 4-5
+// on lanes 0-1, so an addition takes five products' latency instead of three
+// but a warp makes eight at once, with a sixth fewer lane-products each.
+template <bool kPasta>
+__device__ __forceinline__ Pt quad_add(const Pt& a, const Pt& b, const FieldConsts& k, int lane) {
+  constexpr int W = 4;
+  const Fe b3 = fe_from(k.b3);
+  // round 1: X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2); then (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
+  Fe u = fe_sel(lane == 0 || lane == 3, a.x, fe_sel(lane == 1, a.y, a.z));
+  Fe v = fe_sel(lane == 0 || lane == 3, b.x, fe_sel(lane == 1, b.y, b.z));
+  const Fe us = fe_add_cc(u, a.y, k), vs = fe_add_cc(v, b.y, k);
+  const Fe ra = fe_mul_cc<kPasta>(fe_sel(lane == 3, us, u), fe_sel(lane == 3, vs, v), k);
+  u = fe_add_cc(fe_sel(lane == 0, a.y, a.x), a.z, k);
+  v = fe_add_cc(fe_sel(lane == 0, b.y, b.x), b.z, k);
+  const Fe rb = fe_mul_cc<kPasta>(u, v, k);
+  const Fe t0 = shfl_fe<W>(ra, 0), t1 = shfl_fe<W>(ra, 1), t2 = shfl_fe<W>(ra, 2);
+  const Fe s3 = shfl_fe<W>(ra, 3), s4 = shfl_fe<W>(rb, 0), s5 = shfl_fe<W>(rb, 1);
+  // lane 0: t0b = (t0 + t0) + t0; lane 1: y3 = s5 - (t0 + t2); lane 2: t3 = s3 - (t0 + t1);
+  // lane 3: t4 = s4 - (t1 + t2)
+  const Fe s = fe_sel(lane == 1, s5, fe_sel(lane == 2, s3, s4));
+  const Fe A = fe_add_cc(fe_sel(lane == 3, t1, t0), fe_sel(lane == 0, t0, fe_sel(lane == 2, t1, t2)), k);
+  const Fe m = fe_sel(lane == 0, fe_add_cc(A, t0, k), fe_sub_cc(s, A, k));
+  const Fe r = fe_mul_cc<kPasta>(b3, fe_sel(lane == 0, t2, m), k);
+  const Fe t0b = shfl_fe<W>(m, 0), t3 = shfl_fe<W>(m, 2), t4 = shfl_fe<W>(m, 3);
+  const Fe t2b = shfl_fe<W>(r, 0), y3b = shfl_fe<W>(r, 1);
+  const Fe z3 = fe_add_cc(t1, t2b, k);
+  const Fe t1b = fe_sub_cc(t1, t2b, k);
+  // round 3: t4 y3b, t3 t1b, y3b t0b, t1b z3; then t0b t3, z3 t4
+  u = fe_sel(lane == 0, t4, fe_sel(lane == 1, t3, fe_sel(lane == 2, y3b, t1b)));
+  v = fe_sel(lane == 0, y3b, fe_sel(lane == 1, t1b, fe_sel(lane == 2, t0b, z3)));
+  const Fe rc = fe_mul_cc<kPasta>(u, v, k);
+  const Fe rd = fe_mul_cc<kPasta>(fe_sel(lane == 0, t0b, z3), fe_sel(lane == 0, t3, t4), k);
+  Pt out;
+  out.x = fe_sub_cc(shfl_fe<W>(rc, 1), shfl_fe<W>(rc, 0), k);
+  out.y = fe_add_cc(shfl_fe<W>(rc, 3), shfl_fe<W>(rc, 2), k);
+  out.z = fe_add_cc(shfl_fe<W>(rd, 1), shfl_fe<W>(rd, 0), k);
+  return out;
+}

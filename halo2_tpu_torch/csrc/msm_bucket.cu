@@ -30,8 +30,11 @@
 // dropped, each U_j is doubled l times and added to W_j, and a shuffle tree
 // sums the S results: sum_b b * S_b = sum_j W_j + L * sum_{j >= 1} U_j.
 // Every addition follows the skip rule of field.cuh, as msm_fold_plain does.
-// msm_lane_reduce: one block of T threads per row sums the T lane partials
-// as a tree in shared memory (unchanged since the first port).
+// msm_lane_reduce: a block per row sums the T lane partials by the plain
+// version's tree: at level s = T/2, ..., 1, lane i < s takes pt_add(lane i,
+// lane i + s). Each addition of the first level runs on a group of 4 lanes
+// (quad_add of field.cuh), each later one on a group of 8 (warp_add: its
+// products in three rounds on lanes 0-5).
 //
 // What bounds them on an H100, and what the design does about it. The first
 // port ran one thread per (row, lane) with its buckets in device memory: 1 to
@@ -57,8 +60,27 @@
 //   and multiply the threads. ptxas: 240 registers, 0 bytes of spills, an
 //   808-byte stack frame for the calls to fold_add / fold_dbl (inlined, the
 //   kernel took 255 registers and spilled 320 bytes).
-// - lane_reduce_kernel (replaces msm_pallas.py:357 _lane_reduce_fn, unchanged):
-//   148 registers, 0 spills; bound by the tree's 7 dependent full additions.
+// - lane_reduce_kernel (replaces msm_pallas.py:357 _lane_reduce_fn): bound
+//   by the latency of the tree's log2(T) = 7 dependent full additions, each
+//   12 general products (the 3.08 us multiply bound of 192 rows x 127
+//   additions at the k = 14 commit shape is far below it). The first port ran
+//   one thread an addition, its 14 fe_mul one after another, about 16 threads
+//   of a block busy from the third level on, and took 0.124 ms. Here an
+//   addition is three rounds of products on 8 lanes (warp_add), each round
+//   one fe_mul_cc (about 911 cycles in the Pasta form), with ten
+//   carry-chain additions (96 cycles each) and the shuffles between them:
+//   about 4 000 cycles, 2 us. The row's points are read once, coalesced,
+//   into shared memory as 24 words each (12 KB at T = 128), and every level
+//   runs there, one barrier a level, the last three on warp 0 with
+//   __syncwarp, all of them through one loop: a second inlined copy of the
+//   addition (a shuffle tail) made the kernel slower. At 256 threads a block
+//   the first level's 64 additions get a group each only on groups of 4
+//   lanes (quad_add: rounds 1 and 3 in two halves, five product latencies):
+//   one such addition instead of two of three latencies one after the
+//   other, and a sixth fewer lane-products where the level is busiest. At
+//   192 rows, more than one an SM, the first two levels are bound by the
+//   multiply issue of the SMs that hold two rows. ptxas: 128 registers
+//   (__launch_bounds__(256)), no spills.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,15 +91,6 @@ namespace {
 constexpr int ACCUM_THREADS = 128;
 constexpr int FOLD_THREADS = 128;
 constexpr int S_BITS = 17;  // point index within a lane, in a sorted item
-
-__device__ __forceinline__ Pt pt_load(const int32_t* base, long long stride_coord,
-                                      long long stride_limb) {
-  Pt r;
-  r.x = fe_load16(base, stride_limb);
-  r.y = fe_load16(base + stride_coord, stride_limb);
-  r.z = fe_load16(base + 2 * stride_coord, stride_limb);
-  return r;
-}
 
 __device__ __forceinline__ void pt_store(int32_t* base, long long stride_coord,
                                          long long stride_limb, const Pt& p) {
@@ -252,19 +265,78 @@ fold_kernel(const int32_t* __restrict__ buckets, int32_t* __restrict__ parts, in
   if (live && j == 0) pt_store(parts + row * 3 * sc + lane, sc, T, x);
 }
 
-__global__ void lane_reduce_kernel(const int32_t* __restrict__ parts, int32_t* __restrict__ out,
-                                   int T, FieldConsts k) {
-  extern __shared__ Pt pts[];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const long long sc = 16LL * T;
-  pts[lane] = pt_load(parts + (long long)row * 3 * sc + lane, sc, T);
-  __syncthreads();
-  for (int s = T >> 1; s >= 1; s >>= 1) {
-    if (lane < s) pts[lane] = pt_add(pts[lane], pts[lane + s], k);
-    __syncthreads();
+// ---- kernel 4: the lane tree, an addition on each group of 4 or 8 lanes ----
+
+constexpr int LANE_GROUP = 8;
+
+// word w (x: 0-7, y: 8-15, z: 16-23) of point t at pw[w * T + t]
+__device__ __forceinline__ Pt pw_load(const uint32_t* pw, int T, int t) {
+  Pt r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r.x.v[i] = pw[i * T + t];
+    r.y.v[i] = pw[(8 + i) * T + t];
+    r.z.v[i] = pw[(16 + i) * T + t];
   }
-  if (lane == 0) pt_store(out + (long long)row * 48, 16, 1, pts[0]);
+  return r;
+}
+
+__device__ __forceinline__ void pw_store(uint32_t* pw, int T, int t, const Pt& p) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    pw[i * T + t] = p.x.v[i];
+    pw[(8 + i) * T + t] = p.y.v[i];
+    pw[(16 + i) * T + t] = p.z.v[i];
+  }
+}
+
+template <bool kPasta>
+__global__ void __launch_bounds__(256)
+lane_reduce_kernel(const int32_t* __restrict__ parts, int32_t* __restrict__ out, int T,
+                   FieldConsts k) {
+  extern __shared__ uint32_t pw[];  // the row's T points, 24 words each
+  const int nt = blockDim.x;
+  const int lane = threadIdx.x & (LANE_GROUP - 1);
+  const int g = threadIdx.x / LANE_GROUP;
+  // the row's (3, 16, T) limbs, read coalesced: limbs 2w, 2w + 1 make word w
+  const int32_t* src = parts + (long long)blockIdx.x * 48 * T;
+  for (int i = threadIdx.x; i < 24 * T; i += nt) {
+    const int w = i / T, t = i % T;
+    const int32_t* q = src + (long long)2 * w * T + t;
+    pw[i] = (uint32_t)q[0] | ((uint32_t)q[T] << 16);
+  }
+  __syncthreads();
+  // Every level in place in shared memory: addition i reads points i and
+  // i + s and writes point i. A level's additions are dealt to the groups in
+  // turn; s and the groups of a block are multiples of the groups of a warp,
+  // so a warp's groups have the same number of additions and the warp never
+  // diverges, and a warp that has none waits at the barrier.
+  int s = T >> 1;
+  if (s >= 8) {  // the first level on groups of 4 lanes
+    for (int i = threadIdx.x / 4; i < s; i += nt / 4)
+      pw_store(pw, T, i, quad_add<kPasta>(pw_load(pw, T, i), pw_load(pw, T, i + s), k,
+                                          threadIdx.x & 3));
+    __syncthreads();
+    s >>= 1;
+  }
+  // The other levels on groups of 8 lanes, one loop (and one inlined
+  // addition) for all of them: the last ones (s <= 4) on the 4 groups of
+  // warp 0 alone, whose groups i >= s add points 0 and s, a sum no one
+  // stores; __syncwarp keeps their reads of point 0 before group 0's store.
+  for (; s >= 1; s >>= 1) {
+    if (s <= 4 && threadIdx.x >= 32) return;
+    for (int i = g; i < (s < 4 ? 4 : s); i += nt / LANE_GROUP) {
+      const int j = i < s ? i : 0;
+      const Pt r = warp_add<kPasta, LANE_GROUP>(pw_load(pw, T, j), pw_load(pw, T, j + s), k, lane);
+      if (s <= 4) __syncwarp();
+      if (i < s) pw_store(pw, T, i, r);
+    }
+    if (s > 4)
+      __syncthreads();
+    else
+      __syncwarp();
+  }
+  if (threadIdx.x == 0) pt_store(out + (long long)blockIdx.x * 48, 16, 1, pw_load(pw, T, 0));
 }
 
 }  // namespace
@@ -292,9 +364,22 @@ extern "C" int msm_fold(const int32_t* buckets, int32_t* parts, int rows, int B,
   return (int)cudaGetLastError();
 }
 
-extern "C" int msm_lane_reduce(const int32_t* parts, int32_t* out, int rows, int T,
+// threads: threads a block at most (a multiple of 32, at most 256); a block
+// takes max(32, 2 T) of them at most, 4 for each addition of the first level.
+extern "C" int msm_lane_reduce(const int32_t* parts, int32_t* out, int rows, int T, int threads,
                                const FieldConsts* consts, void* stream) {
-  lane_reduce_kernel<<<rows, T, T * sizeof(Pt), (cudaStream_t)stream>>>(parts, out, T,
-                                                                          *consts);
+  if (threads > 2 * T) threads = 2 * T;
+  if (threads < 32) threads = 32;
+  const size_t smem = (size_t)24 * T * sizeof(uint32_t);
+  auto kernel = pasta_form(*consts) ? lane_reduce_kernel<true> : lane_reduce_kernel<false>;
+  static size_t smem_set[2] = {48 * 1024, 48 * 1024};
+  size_t& set = smem_set[pasta_form(*consts)];
+  if (smem > set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    set = smem;
+  }
+  kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(parts, out, T, *consts);
   return (int)cudaGetLastError();
 }

@@ -321,23 +321,8 @@ __global__ void window_kernel(const int32_t* __restrict__ part, int32_t* __restr
 // Each round of independent products of an RCB15 doubling or addition runs
 // on lanes 0-5 at once, a product a lane (fe_mul_cc); lane j's product
 // reaches every lane by shuffles, and every lane makes the additions, the
-// subtractions and the skip tests itself, so the warp never diverges.
-
-__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src);
-  return r;
-}
-
-// c ? a : b word by word, in registers (a select of whole structs would go
-// through a local-memory copy)
-__device__ __forceinline__ Fe fe_sel(bool c, const Fe& a, const Fe& b) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = c ? a.v[i] : b.v[i];
-  return r;
-}
+// subtractions and the skip tests itself, so the warp never diverges
+// (warp_add, shared with kernel 4, and its helpers are in field.cuh).
 
 // pt_double's operations, its 8 general products in three rounds:
 // (Y Y, Y Z, Z Z, X Y), (3b ZZ, YZ Z3), (t2 Z3, t0 Y3, t0 XY)
@@ -362,38 +347,6 @@ __device__ __forceinline__ Pt warp_double(const Pt& a, const FieldConsts& k, int
   const Fe x3 = shfl_fe(r, 0), y3b = shfl_fe(r, 1), x3b = shfl_fe(r, 2);
   out.y = fe_add_cc(x3, y3b, k);
   out.x = fe_add_cc(x3b, x3b, k);
-  return out;
-}
-
-// pt_add's operations, its 14 general products in three rounds of 6, 2, 6;
-// lanes 3-5 multiply sums (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
-template <bool kPasta>
-__device__ __forceinline__ Pt warp_add(const Pt& a, const Pt& b, const FieldConsts& k, int lane) {
-  const Fe b3 = fe_from(k.b3);
-  const bool x1 = lane == 0 || lane == 3 || lane == 5, y1 = lane == 1 || lane == 4;
-  const bool y2 = lane == 3;
-  Fe u = fe_sel(x1, a.x, fe_sel(y1, a.y, a.z)), v = fe_sel(x1, b.x, fe_sel(y1, b.y, b.z));
-  const Fe us = fe_add_cc(u, fe_sel(y2, a.y, a.z), k), vs = fe_add_cc(v, fe_sel(y2, b.y, b.z), k);
-  Fe r = fe_mul_cc<kPasta>(fe_sel(lane >= 3, us, u), fe_sel(lane >= 3, vs, v), k);
-  const Fe t0 = shfl_fe(r, 0), t1 = shfl_fe(r, 1), t2 = shfl_fe(r, 2);
-  const Fe t3 = fe_sub_cc(shfl_fe(r, 3), fe_add_cc(t0, t1, k), k);
-  const Fe t4 = fe_sub_cc(shfl_fe(r, 4), fe_add_cc(t1, t2, k), k);
-  const Fe y3 = fe_sub_cc(shfl_fe(r, 5), fe_add_cc(t0, t2, k), k);
-  const Fe t0b = fe_add_cc(fe_add_cc(t0, t0, k), t0, k);
-  r = fe_mul_cc<kPasta>(b3, fe_sel(lane == 0, t2, y3), k);
-  const Fe t2b = shfl_fe(r, 0), y3b = shfl_fe(r, 1);
-  const Fe z3 = fe_add_cc(t1, t2b, k);
-  const Fe t1b = fe_sub_cc(t1, t2b, k);
-  // lanes 0-5: t4 y3b, t3 t1b, y3b t0b, t1b z3, t0b t3, z3 t4
-  u = fe_sel(lane == 0, t4, fe_sel(lane == 1, t3, fe_sel(lane == 2, y3b,
-          fe_sel(lane == 3, t1b, fe_sel(lane == 4, t0b, z3)))));
-  v = fe_sel(lane == 0, y3b, fe_sel(lane == 1, t1b, fe_sel(lane == 2, t0b,
-          fe_sel(lane == 3, z3, fe_sel(lane == 4, t3, t4)))));
-  r = fe_mul_cc<kPasta>(u, v, k);
-  Pt out;
-  out.x = fe_sub_cc(shfl_fe(r, 1), shfl_fe(r, 0), k);
-  out.y = fe_add_cc(shfl_fe(r, 3), shfl_fe(r, 2), k);
-  out.z = fe_add_cc(shfl_fe(r, 5), shfl_fe(r, 4), k);
   return out;
 }
 

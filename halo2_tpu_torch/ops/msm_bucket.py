@@ -22,7 +22,10 @@ version beside it that computes the same tensors:
    makes the kernel's additions in the kernel's order, with the segments as
    a batch dimension.
 3. `msm_lane_reduce` (replaces `_lane_reduce_fn`): tree sum of the T lane
-   partials of each row (T a power of two).
+   partials of each row (T a power of two): at level s = T/2, ..., 1, lane
+   i < s takes the complete addition of lanes i and i + s. The kernel runs
+   each addition on 4 lanes of a warp at the first level and on 8 at the
+   others, and gives the plain version's coordinates bit for bit.
 
 The window sums come back to the host once (`CurveCtx.decode_points`) and
 are combined by Horner over windows with c doublings per step, as
@@ -59,6 +62,9 @@ ACCUM_SMEM_TARGET = 75 * 1024
 ACCUM_SMEM_MAX = 232448
 # log2 of the fold's segment length L per window width c.
 FOLD_LOG_SEGMENT = {4: 4, 8: 5}
+# Threads a block of kernel 4 (a row a block; 4 lanes an addition at the
+# first level, 8 at the others; from `tools/msm_ab.py --sweep`).
+LANE_REDUCE_THREADS = 256
 LAUNCHES = {"msm_accum": 0, "msm_fold": 0, "msm_lane_reduce": 0}
 
 _P = ctypes.c_void_p
@@ -66,7 +72,7 @@ _I = ctypes.c_int
 _SIG = {
     "msm_accum": (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P, _P),
     "msm_fold": (_P, _P, _I, _I, _I, _I, _P, _P),
-    "msm_lane_reduce": (_P, _P, _I, _I, _P, _P),
+    "msm_lane_reduce": (_P, _P, _I, _I, _I, _P, _P),
 }
 
 
@@ -256,10 +262,13 @@ def msm_lane_reduce(parts: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
     rows, _, _, T = parts.shape
     if T > 1024 or T & (T - 1):
         raise ValueError(f"msm_lane_reduce: T = {T} must be a power of two <= 1024")
+    if LANE_REDUCE_THREADS % 32 or not 32 <= LANE_REDUCE_THREADS <= 256:
+        raise ValueError(f"msm_lane_reduce: {LANE_REDUCE_THREADS} threads a block, not a "
+                         "multiple of 32 in [32, 256]")
     _build.check_tensor(parts, (rows, 3, NLIMBS, T), "parts", parts.device)
     out = torch.empty((rows, 3, NLIMBS), dtype=torch.int32, device=parts.device)
     lib = _build.load("msm_bucket", _SIG)
-    err = lib.msm_lane_reduce(parts.data_ptr(), out.data_ptr(), rows, T,
+    err = lib.msm_lane_reduce(parts.data_ptr(), out.data_ptr(), rows, T, LANE_REDUCE_THREADS,
                               ctypes.byref(_consts(cc)),
                               torch.cuda.current_stream(parts.device).cuda_stream)
     _build.check(err, "msm_lane_reduce")

@@ -136,6 +136,17 @@ def cg_ntt_level(x: torch.Tensor, stw: torch.Tensor, inter: Optional[torch.Tenso
     return y
 
 
+def digit_reversal(radices) -> np.ndarray:
+    """perm of the last level of a four-step plan whose earlier levels have
+    sizes `radices`: its column b = (k1, k2, ...) (k1 most significant) goes to
+    k1 + f0 k2 + f0 f1 k3 + ..., the digit reversal over those radices. Both
+    plans split X[k1 + f k2] so, and share it."""
+    perm = np.zeros(1, dtype=np.int32)
+    for f in radices:
+        perm = (perm[:, None] + perm.size * np.arange(f, dtype=np.int32)).reshape(-1)
+    return perm
+
+
 class CgNttPlan:
     """Constant-geometry NTT; (n, 16) -> (n, 16) Montgomery limbs."""
 
@@ -180,13 +191,8 @@ class CgNttPlan:
             levels.append(dict(f=f, g=g, stw=stw, inter=inter, perm=None))
             size = g
             root = pow(root, f, p)
-        # the last level's column b = (k1, k2, ...) (k1 most significant) goes
-        # to k1 + f0 k2 + f0 f1 k3 + ...: digit reversal over the earlier radices
-        perm = np.zeros(1, dtype=np.int32)
-        for lv in levels[:-1]:
-            perm = (perm[:, None] + perm.size * np.arange(lv["f"], dtype=np.int32)).reshape(-1)
         if levels:
-            levels[-1]["perm"] = perm
+            levels[-1]["perm"] = digit_reversal([lv["f"] for lv in levels[:-1]])
         self.levels = levels
 
     def _tables(self, device):
@@ -200,12 +206,16 @@ class CgNttPlan:
             ]
         return self._dev[device]
 
+    def _level(self, x, stw, inter, perm):
+        """One level in the (B, f, g) contract: kernel 1 here, kernel 8 in MrNttPlan."""
+        return cg_ntt_level(x, stw, inter, self.ctx, perm)
+
     def __call__(self, a: torch.Tensor) -> torch.Tensor:
         if tuple(a.shape) != (self.n, NLIMBS):
             raise ValueError(f"{type(self).__name__}: expected ({self.n}, 16), got {tuple(a.shape)}")
         x = a.contiguous()
         for lv, tab in zip(self.levels, self._tables(a.device)):
             f, g = lv["f"], lv["g"]
-            x = cg_ntt_level(x.reshape(self.n // (f * g), f, g, NLIMBS), tab["stw"], tab["inter"],
-                             self.ctx, tab["perm"])
+            x = self._level(x.reshape(self.n // (f * g), f, g, NLIMBS), tab["stw"], tab["inter"],
+                            tab["perm"])
         return x.reshape(self.n, NLIMBS)

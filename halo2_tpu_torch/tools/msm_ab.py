@@ -1,5 +1,6 @@
 """Times the bucket MSM's kernels 2-4, the sorted MSM's kernels 5-7 and the
-BenchCircuit proofs of one tree of this repository, so that two trees (a
+BenchCircuit proofs of one tree of this repository (with `--ntt`, the NTT
+kernels 1 and 8 and kernels 9-10), so that two trees (a
 parent commit unpacked beside the checkout, and the checkout) can be read on
 one card in one run.
 
@@ -13,10 +14,14 @@ shape and, with `--proofs`, per proof:
   and at M = 2, n = 2^15, c = 8 (bases of the k = 14 params, scalars from a
   numpy seed): the median CUDA-event time of each kernel over 5 warm
   launches and its device time (`device_ms`: per call of calls replayed from
-  one CUDA graph, without the host's launch time), the sha256 of the bucket tensor (the bytes kernel 2 writes, in the
-  first port's (rows, B, 3, 16, T) order whatever the tree's layout) and
-  of the window sums as affine points (the group elements kernels 3 and 4
-  give, whatever their projective coordinates);
+  one CUDA graph, without the host's launch time), the sha256 of the bucket
+  tensor (the bytes kernel 2 writes, in the first port's (rows, B, 3, 16, T)
+  order whatever the tree's layout), of the window sums as affine points
+  (the group elements kernels 3 and 4 give, whatever their projective
+  coordinates) and of kernel 4's output limbs (its projective coordinates,
+  which kernel 4's redesign keeps bit for bit); with `--sweep` (trees that
+  have LANE_REDUCE_THREADS), kernel 4's device time at each block size of
+  LANE_REDUCE_SWEEP, each output checked against the default's bit for bit;
 - with `--sorted`, in place of those two shapes: the sorted MSM at
   n = 2^16 + 1 on the k = 16 params' bases (g ++ [w]), for uniform scalars
   below q with the edge scalars in the first rows, and for scalars below
@@ -32,21 +37,23 @@ shape and, with `--proofs`, per proof:
   each checked against the default geometry's buckets (bit for bit) or
   window sums (as affine points);
 - with `--ntt`, in place of the bucket shapes: the constant-geometry NTT
-  (kernel 1) on Fp at 2^14 and 2^16, forward, on values from a numpy seed:
-  the median CUDA-event time and the device time of kernel 1 at each level
-  of the plan (in the tree's own level contract: (cols, f) columns before
-  the redesign, (B, f, g) after it) and of the whole transform, the device
-  kernels one transform
-  launches (a torch.profiler count: kernel 1's launches and any torch copy
-  around them) and the sha256 of the transform's output limbs, which must be
-  equal on the parent and the change; with `--sweep` (trees that have
-  LEVEL_THREADS), the device time of every level at each LEVEL_SWEEP block
-  size and of the whole transform at each MAX_LOG_F of NTT_LOG_F_SWEEP, each
-  output checked
-  against the default's (bit for bit at another block size; as canonical
-  values at another MAX_LOG_F, whose levels leave other representatives); and, to show that the kernels it leaves alone keep
-  their times, kernel 8 at the first level of its 2^16 plan and kernels 9
-  and 10 through the profiling tool's `tilemul` at 2^18 elements;
+  (kernel 1) and the mixed-radix NTT (kernel 8, `NTT=pallas`) on Fp at 2^14
+  and 2^16, forward, on values from a numpy seed: for each, the median
+  CUDA-event time and the device time at each level of the plan, in the
+  tree's own level contract ((B, f, g) columns, perm at the last level,
+  since the kernel's redesign; (cols, f) columns before it, with the
+  transposes in torch), and of the whole transform, the device kernels one
+  transform launches (a torch.profiler
+  count: the kernel's launches and any torch copy around them) and the
+  sha256 of the transform's output limbs, which must be equal on the parent
+  and the change; with `--sweep`, for each engine in the (B, f, g)
+  contract, the device time of every level and of the transform at each
+  LEVEL_SWEEP block size (its LEVEL_THREADS), the output checked bit for bit
+  against the default's, and kernel 1's transform at each MAX_LOG_F of
+  NTT_LOG_F_SWEEP (checked as canonical values: other levels leave other
+  representatives); and, to show that the kernels it leaves alone keep
+  their times, kernels 9 and 10 through the profiling tool's `tilemul` at
+  2^18 elements;
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -79,6 +86,8 @@ FOLD_SWEEP = ((2, 256), (3, 128), (3, 256), (4, 64), (4, 128), (4, 256), (5, 32)
               (5, 128))
 # threads a block of kernel 1 (f/2 a column), and the largest level size 2^MAX_LOG_F
 LEVEL_SWEEP = (32, 64, 128, 256, 512)
+# threads a block of kernel 4 (a row a block, 4 lanes an addition at the first level)
+LANE_REDUCE_SWEEP = (64, 128, 256)
 NTT_LOG_F_SWEEP = (6, 7, 8, 9)
 
 
@@ -210,8 +219,8 @@ def sorted_section(params16, msm_bucket, msm_sorted, dev, rng, sweep: bool = Fal
 
 
 def ntt_section(dev, rng, sweep: bool = False) -> None:
-    """Kernel 1 per level and the whole CG transform at 2^14 and 2^16 (see
-    the module's docstring); the modules are the tree's own."""
+    """Kernels 1 and 8 per level and their whole transforms at 2^14 and 2^16
+    (see the module's docstring); the modules are the tree's own."""
     from halo2_tpu_torch.curves import Pallas
     from halo2_tpu_torch.fields import Fp
     from halo2_tpu_torch.ops import ntt_cg, ntt_mr, tile_bench
@@ -221,16 +230,23 @@ def ntt_section(dev, rng, sweep: bool = False) -> None:
 
     ctx = FieldCtx(Fp)
     p = Fp.MODULUS
-    contract = "B,f,g" if hasattr(ntt_cg, "LEVEL_THREADS") else "cols,f"
+    # each engine: its plan, its level wrapper, its module (LEVEL_THREADS) and
+    # its level contract in this tree: (B, f, g) columns with perm at the last
+    # level since the engine's redesign, (cols, f) columns before it
+    engines = (
+        ("cg_ntt_level", ntt_cg.CgNttPlan, ntt_cg, hasattr(ntt_cg, "LEVEL_THREADS")),
+        ("mr_col_ntt", ntt_mr.MrNttPlan, ntt_mr, hasattr(ntt_mr, "LEVEL_THREADS")),
+    )
 
-    def level_fn(x, lv, tab):
+    def level_fn(mod, kernel, new, x, lv, tab):
         f, g = lv["f"], lv["g"]
         n = x.shape[0]
-        if contract == "cols,f":
+        fn = getattr(mod, kernel)
+        if not new:
             xl = x.reshape(n // f, f, 16)
-            return lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], ctx)
+            return lambda: fn(xl, tab["stw"], tab["inter"], ctx)
         xl = x.reshape(n // (f * g), f, g, 16)
-        return lambda: ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], ctx, tab["perm"])
+        return lambda: fn(xl, tab["stw"], tab["inter"], ctx, tab["perm"])
 
     def digest(y):
         return hashlib.sha256(y.contiguous().cpu().numpy().tobytes()).hexdigest()
@@ -238,10 +254,14 @@ def ntt_section(dev, rng, sweep: bool = False) -> None:
     def kernels_launched(fn):
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        counts = []
+        for _ in range(3):  # a profiler session now and then misses kernels, never invents one
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts.append(sum(1 for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA))
+        return max(counts)
 
     for log_n in (14, 16):
         n = 1 << log_n
@@ -249,50 +269,47 @@ def ntt_section(dev, rng, sweep: bool = False) -> None:
         limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
         limbs[:, 15] &= 0x3FFF  # below p
         x = ctx.to_mont(torch.as_tensor(limbs.astype(np.int32), device=dev))
-        plan = ntt_cg.CgNttPlan(Fp, log_n, omega)
-        tabs = plan._tables(dev)
-        y = plan(x)
-        emit({"ntt_log_n": log_n, "contract": contract,
-              "levels": [(lv["f"], lv["g"]) for lv in plan.levels],
-              "level_ms": [time_ms(level_fn(x, lv, tab)) for lv, tab in zip(plan.levels, tabs)],
-              "level_device_ms": [device_ms(level_fn(x, lv, tab)) for lv, tab in zip(plan.levels, tabs)],
-              "transform_ms": time_ms(lambda: plan(x)),
-              "transform_device_ms": device_ms(lambda: plan(x)),
-              "device_kernels_per_transform": kernels_launched(lambda: plan(x)),
-              "output_sha256": digest(y)})
-        if not (sweep and contract == "B,f,g"):
-            continue
-        default = ntt_cg.LEVEL_THREADS
-        try:
-            for threads in LEVEL_SWEEP:
-                ntt_cg.LEVEL_THREADS = threads
-                emit({"sweep": "cg_ntt_level", "log_n": log_n, "threads": threads,
-                      "same_output": torch.equal(plan(x), y),
-                      "level_device_ms": [device_ms(level_fn(x, lv, tab))
-                                          for lv, tab in zip(plan.levels, tabs)],
-                      "transform_device_ms": device_ms(lambda: plan(x))})
-        finally:
-            ntt_cg.LEVEL_THREADS = default
-        saved = ntt_cg.CgNttPlan.MAX_LOG_F
-        try:
-            for log_f in NTT_LOG_F_SWEEP:
-                ntt_cg.CgNttPlan.MAX_LOG_F = log_f
-                other = ntt_cg.CgNttPlan(Fp, log_n, omega)
-                emit({"sweep": "MAX_LOG_F", "log_n": log_n, "max_log_f": log_f,
-                      "levels": [(lv["f"], lv["g"]) for lv in other.levels],
-                      "same_values": torch.equal(from_mont(other(x), ctx), from_mont(y, ctx)),
-                      "transform_device_ms": device_ms(lambda: other(x))})
-        finally:
-            ntt_cg.CgNttPlan.MAX_LOG_F = saved
-    # the kernels this tree's NTT work leaves alone: kernel 8, kernels 9 and 10
-    mr = ntt_mr.MrNttPlan(Fp, 16, omega)
-    lv, tab = mr.levels[0], mr._tables(dev)[0]
-    xl = x.reshape(n // lv["f"], lv["f"], 16)
+        for kernel, plan_cls, mod, new in engines:
+            plan = plan_cls(Fp, log_n, omega)
+            tabs = plan._tables(dev)
+            y = plan(x)
+            levels = [level_fn(mod, kernel, new, x, lv, tab) for lv, tab in zip(plan.levels, tabs)]
+            emit({"ntt_log_n": log_n, "kernel": kernel, "contract": "B,f,g" if new else "cols,f",
+                  "levels": [(lv["f"], lv["g"]) for lv in plan.levels],
+                  "level_ms": [time_ms(fn) for fn in levels],
+                  "level_device_ms": [device_ms(fn) for fn in levels],
+                  "transform_ms": time_ms(lambda: plan(x)),
+                  "transform_device_ms": device_ms(lambda: plan(x)),
+                  "device_kernels_per_transform": kernels_launched(lambda: plan(x)),
+                  "output_sha256": digest(y)})
+            if not (sweep and new):
+                continue
+            default = mod.LEVEL_THREADS
+            try:
+                for threads in LEVEL_SWEEP:
+                    mod.LEVEL_THREADS = threads
+                    emit({"sweep": kernel, "log_n": log_n, "threads": threads,
+                          "same_output": torch.equal(plan(x), y),
+                          "level_device_ms": [device_ms(fn) for fn in levels],
+                          "transform_device_ms": device_ms(lambda: plan(x))})
+            finally:
+                mod.LEVEL_THREADS = default
+            if kernel != "cg_ntt_level":
+                continue
+            saved = ntt_cg.CgNttPlan.MAX_LOG_F
+            try:
+                for log_f in NTT_LOG_F_SWEEP:
+                    ntt_cg.CgNttPlan.MAX_LOG_F = log_f
+                    other = ntt_cg.CgNttPlan(Fp, log_n, omega)
+                    emit({"sweep": "MAX_LOG_F", "log_n": log_n, "max_log_f": log_f,
+                          "levels": [(lv["f"], lv["g"]) for lv in other.levels],
+                          "same_values": torch.equal(from_mont(other(x), ctx), from_mont(y, ctx)),
+                          "transform_device_ms": device_ms(lambda: other(x))})
+            finally:
+                ntt_cg.CgNttPlan.MAX_LOG_F = saved
+    # the kernels this tree's NTT work leaves alone: kernels 9 and 10
     tiles = profile_kernels.tilemul(1 << 18, device=dev)
     cc = CurveCtx(Pallas)
-
-    def mr():
-        return ntt_mr.mr_col_ntt(xl, tab["stw"], tab["inter"], ctx)
 
     def mul():
         return tile_bench.tile_mul(tiles["a"], tiles["b"], cc.fctx)
@@ -300,10 +317,8 @@ def ntt_section(dev, rng, sweep: bool = False) -> None:
     def padd():
         return tile_bench.tile_padd(*tiles["pts"], cc)
 
-    emit({"other_kernels_ms": {"mr_col_ntt": time_ms(mr), "tile_mul": tiles["mul_ms"],
-                               "tile_padd": tiles["padd_ms"]},
-          "other_kernels_device_ms": {"mr_col_ntt": device_ms(mr), "tile_mul": device_ms(mul),
-                                      "tile_padd": device_ms(padd)}})
+    emit({"other_kernels_ms": {"tile_mul": tiles["mul_ms"], "tile_padd": tiles["padd_ms"]},
+          "other_kernels_device_ms": {"tile_mul": device_ms(mul), "tile_padd": device_ms(padd)}})
 
 
 def main(argv=None) -> int:
@@ -365,6 +380,16 @@ def main(argv=None) -> int:
         rk = msm_bucket.msm_lane_reduce(fk, cc)
         wins = cc.decode_points(PointVec(rk[:, 0], rk[:, 1], rk[:, 2]))
         affine = repr([p.xy for p in wins]).encode()
+        if ns.sweep and hasattr(msm_bucket, "LANE_REDUCE_THREADS"):
+            default = msm_bucket.LANE_REDUCE_THREADS
+            try:
+                for threads in LANE_REDUCE_SWEEP:
+                    msm_bucket.LANE_REDUCE_THREADS = threads
+                    emit({"sweep": "msm_lane_reduce", "shape": label, "threads": threads,
+                          "same_output": torch.equal(msm_bucket.msm_lane_reduce(fk, cc), rk),
+                          "device_ms": device_ms(lambda: msm_bucket.msm_lane_reduce(fk, cc), 5)})
+            finally:
+                msm_bucket.LANE_REDUCE_THREADS = default
         calls = {
             "msm_accum": lambda: msm_bucket.msm_accum(scal, db.px, db.py, c, nwin, T, cc),
             "msm_fold": lambda: msm_bucket.msm_fold(bk, cc),
@@ -376,7 +401,8 @@ def main(argv=None) -> int:
             bk = bk.permute(0, 2, 3, 4, 1)
         emit({"shape": label, "M": M, "n": n, "c": c, "nwin": nwin, "T": T, "ms": ms,
               "buckets_sha256": hashlib.sha256(bk.contiguous().cpu().numpy().tobytes()).hexdigest(),
-              "window_sums_affine_sha256": hashlib.sha256(affine).hexdigest()})
+              "window_sums_affine_sha256": hashlib.sha256(affine).hexdigest(),
+              "lane_reduce_limbs_sha256": hashlib.sha256(rk.cpu().numpy().tobytes()).hexdigest()})
 
     if not ns.proofs:
         return 0

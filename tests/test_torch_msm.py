@@ -172,9 +172,47 @@ def test_bucket_kernels_match_plain_on_card():
             (fk, msm_bucket.msm_fold_plain(bk, cc)),
             (rk, msm_bucket.msm_lane_reduce_plain(fk, cc)),
         ):
-            ctx = cc.fctx
-            assert torch.equal(ctx.from_mont(got.reshape(-1, 16)), ctx.from_mont(want.reshape(-1, 16)))
+            assert torch.equal(got, want)  # raw limbs
     got = msm_bucket.msm_bucket_many(limbs_tensor(np.stack([ints_to_limbs(r) for r in rows]), "cuda"),
                                      bases, mont=False)
     for r, tp in zip(rows, got):
         assert same_point(tp, jmsm_host(r, jpts, jcurve))
+
+
+@pytest.mark.gpu
+def test_lane_reduce_kernel_on_edge_parts():
+    """Kernel 4 bit for bit against its plain version on rows of parts that
+    hold the identity, a pair P, P at the first level (the doubling case of
+    the complete formula), a pair P, -P (the sum is the identity), rows
+    whose every lane is the identity, and coordinates scaled by a
+    lambda (projective), at T = 128 and T = 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU build")
+    curve = curve_of(JVesta)
+    cc = CurveCtx(curve)
+    ctx = cc.fctx
+    rng = np.random.default_rng(21)
+    g = curve.generator()
+    for T in (128, 8):
+        pts = [[g.mul(int(rng.integers(1, 1 << 62))) for _ in range(T)] for _ in range(5)]
+        ident = curve.identity()
+        pts[0][1] = ident
+        pts[0][T // 2 + 2] = ident
+        pts[1][0] = pts[1][T // 2]  # P + P at the first level
+        pts[2][1] = -pts[2][T // 2 + 1]  # P + (-P)
+        pts[3] = [ident] * T
+        pts[4][: T // 2] = [-p for p in pts[4][T // 2 :]]  # every first-level sum the identity
+        pv = cc.encode_points([p for row in pts for p in row], "cuda")
+        lam = ctx.consts([int(rng.integers(2, 1 << 62)) for _ in range(5 * T)], "cuda")
+        coords = [ctx.mul(t, lam).reshape(5, T, 16) for t in pv]
+        parts = torch.stack(coords, dim=1).transpose(-1, -2).contiguous()  # (rows, 3, 16, T)
+        got = msm_bucket.msm_lane_reduce(parts, cc)
+        want = msm_bucket.msm_lane_reduce_plain(parts, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"T = {T}"
+        sums = cc.decode_points(PointVec(got[:, 0], got[:, 1], got[:, 2]))
+        for row, total in zip(pts, sums):
+            acc = curve.identity()
+            for p in row:
+                acc = acc + p
+            assert total == acc

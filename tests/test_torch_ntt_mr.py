@@ -2,14 +2,15 @@
 engine) and the engine switch `get_plan`, against the JAX package on the CPU.
 
 On a CPU tensor `mr_col_ntt` runs its plain torch version, so these tests
-drive the level tables, the bit reversal, the stages and the inter-level
-twiddles that kernel 8 sits in. The tables must equal those of the JAX
-package's `PallasNttPlan` (read host-side: building that plan compiles
-nothing), one level must equal the same level computed with the JAX
-package's field ops, and whole transforms must equal the JAX radix-2
-`NttPlan` and, in a subprocess, `PallasNttPlan` itself in interpret mode.
-Comparisons are exact on canonical values. The kernel is held against the
-plain version on the card by the `gpu` test below and by chip_smoke.py.
+drive the level tables, the bit reversal, the stages, the inter-level
+twiddles and the (B, f, g) level contract that kernel 8 sits in. The tables
+must equal those of the JAX package's `PallasNttPlan` (read host-side:
+building that plan compiles nothing), a level must equal the same level
+computed with the JAX package's field ops on the columns its (B, f, g) view
+holds, and whole transforms must equal the JAX radix-2 `NttPlan` and, in a
+subprocess, `PallasNttPlan` itself in interpret mode. Comparisons are exact
+on canonical values. The kernel is held against the plain version on the
+card, bit for bit, by the `gpu` tests below and by chip_smoke.py.
 """
 
 import json
@@ -30,7 +31,7 @@ from halo2_tpu.ops.ntt import NttPlan as JNttPlan
 from halo2_tpu.ops.ntt_pallas import PallasNttPlan as JPallasNttPlan
 from halo2_tpu_torch.interop import field_of, limbs_tensor
 from halo2_tpu_torch.ops import ntt_mr
-from halo2_tpu_torch.ops.field import FieldCtx, from_mont, limbs_to_ints
+from halo2_tpu_torch.ops.field import FieldCtx, from_mont, ints_to_limbs, limbs_to_ints
 from halo2_tpu_torch.ops.mxu_mont import MxuNttPlan
 from halo2_tpu_torch.ops.ntt import NttPlan, bitrev_perm, get_plan
 from halo2_tpu_torch.ops.ntt_cg import CgNttPlan
@@ -106,22 +107,72 @@ def _jax_level(x, stw, perm, inter, jfield):
     return x
 
 
+def _columns(y, B, f, g, perm):
+    """The (B g, f) columns of a level's output: (B, f, g), or (f, B) with perm."""
+    if perm is None:
+        return y.transpose(1, 2).reshape(B * g, f, 16)
+    return y[:, torch.as_tensor(perm).long()].transpose(0, 1)
+
+
+def _jax_level_on_view(x, lv, jfield):
+    """_jax_level on the columns (b, j2) that x's (B, f, g) view holds."""
+    B, f, g, _ = x.shape
+    cols = jnp.asarray(np.ascontiguousarray(np.swapaxes(x, 1, 2)).reshape(B * g, f, 16))
+    perm = jnp.asarray(bitrev_perm(f.bit_length() - 1))
+    inter = None if lv["inter"] is None else jnp.asarray(lv["inter"].astype(np.uint32))
+    stw = jnp.asarray(lv["stw"].astype(np.uint32))
+    field_jax.FieldCtx(jfield)  # built eagerly: a context first built inside the trace would leak it
+    return jax.jit(_jax_level, static_argnums=4)(cols, stw, perm, inter, jfield)
+
+
 @pytest.mark.parametrize("name,k,level", [("Fq", 10, 0), ("FrBn", 10, 1)])
 def test_level_plain_matches_jax_field_ops(name, k, level):
+    """Level 0 of 2^10 is (B, f, g) = (1, 256, 4); level 1, the last, is
+    (256, 4, 1) with perm."""
     jfield = JFIELDS[name]
     field = field_of(name)
     jlv = JPallasNttPlan(jfield, k, omega_for(jfield, k)).levels[level]
     lv = MrNttPlan(field, k, omega_for(field, k)).levels[level]
     f, g = lv["f"], lv["g"]
-    x = mont_input((1 << k), seed=k + level).reshape(-1, f, 16)
-    jinter = None
-    if jlv["inter"] is not None:
-        jinter = jnp.transpose(jlv["inter"], (2, 0, 1))[:g]
-    want = jax.jit(_jax_level, static_argnums=4)(jnp.asarray(x), jlv["stw"], jlv["perm"], jinter, jfield)
+    assert (jlv["f"], jlv["g"]) == (f, g)
+    B = (1 << k) // (f * g)
+    x = mont_input((1 << k), seed=k + level).reshape(B, f, g, 16)
+    want = _jax_level_on_view(x, lv, jfield)
     inter = None if lv["inter"] is None else torch.as_tensor(lv["inter"])
-    got = ntt_mr.mr_col_ntt(limbs_tensor(x), torch.as_tensor(lv["stw"]), inter, FieldCtx(field))
-    assert got.shape == x.shape
-    assert canon_t(got, field) == canon_j(want, jfield)
+    perm = None if lv["perm"] is None else torch.as_tensor(lv["perm"])
+    got = ntt_mr.mr_col_ntt(limbs_tensor(x), torch.as_tensor(lv["stw"]), inter, FieldCtx(field), perm)
+    assert got.shape == ((f, B, 16) if perm is not None else x.shape)
+    assert canon_t(_columns(got, B, f, g, lv["perm"]), field) == canon_j(want, jfield)
+
+
+def test_level_contract_with_batch_and_period(monkeypatch):
+    """MAX_LOG_F = 2 at k = 6: levels (B, f, g) = (1, 4, 16), (4, 4, 4) and
+    (16, 4, 1) with perm. The middle level's plain output (B > 1, g > 1)
+    equals the JAX field ops' level on the columns its view holds, the last
+    level's perm is the digit reversal, and the levels chained in the
+    contract give the radix-2 transform, bit for bit the plan's."""
+    monkeypatch.setattr(MrNttPlan, "MAX_LOG_F", 2)
+    name, k = "Fp", 6
+    jfield, field = JFIELDS[name], field_of(name)
+    ctx = FieldCtx(field)
+    omega = omega_for(field, k)
+    plan = MrNttPlan(field, k, omega)
+    assert [(lv["f"], lv["g"]) for lv in plan.levels] == [(4, 16), (4, 4), (4, 1)]
+    assert list(plan.levels[-1]["perm"]) == [k1 + 4 * k2 for k1 in range(4) for k2 in range(4)]
+    a = limbs_tensor(mont_input(1 << k, seed=6))
+    y = a
+    for li, lv in enumerate(plan.levels):
+        f, g = lv["f"], lv["g"]
+        B = (1 << k) // (f * g)
+        x = y.reshape(B, f, g, 16)
+        inter = None if lv["inter"] is None else torch.as_tensor(lv["inter"])
+        perm = None if lv["perm"] is None else torch.as_tensor(lv["perm"])
+        y = ntt_mr.mr_col_ntt(x, torch.as_tensor(lv["stw"]), inter, ctx, perm)
+        if li == 1:
+            want = _jax_level_on_view(x.numpy().astype(np.uint32), lv, jfield)
+            assert canon_t(_columns(y, B, f, g, None), field) == canon_j(want, jfield)
+    assert canon_t(y, field) == canon_t(NttPlan(field, k, omega)(a), field)
+    assert torch.equal(y.reshape(-1, 16), plan(a))
 
 
 @pytest.mark.parametrize("k", [4, 9, 12])
@@ -216,18 +267,47 @@ def test_get_plan_rejects_unknown_engine(value, monkeypatch):
         get_plan(field, 5, omega_for(field, 5))
 
 
+def edge_mont(field, n: int, seed: int) -> torch.Tensor:
+    """(n, 16) Montgomery limbs: 0, 1, p - 1 and 2p - 1 (the ends of the lazy
+    domain [0, 2p)) first, uniform values below 2p after them."""
+    p = field.MODULUS
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, p - 1, 2 * p - 1] + [int.from_bytes(rng.bytes(32), "little") % (2 * p)
+                                       for _ in range(n - 4)]
+    return torch.as_tensor(ints_to_limbs(vals))
+
+
 @pytest.mark.gpu
 def test_mr_level_kernel_matches_plain_on_card():
+    """Every level of both plans, bit for bit (raw limbs), on edge inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU build")
-    for name, log_n in (("Fp", 10), ("Fp", 18), ("FrBn", 14)):
+    for name, log_n in (("Fp", 9), ("Fp", 10), ("Fp", 18), ("FrBn", 14)):
         field = field_of(name)
         ctx = FieldCtx(field)
-        plan = MrNttPlan(field, log_n, omega_for(field, log_n))
-        for lv, tab in zip(plan.levels, plan._tables("cuda")):
-            x = limbs_tensor(mont_input(1 << log_n, seed=log_n), "cuda").reshape(-1, lv["f"], 16)
-            got = ntt_mr.mr_col_ntt(x, tab["stw"], tab["inter"], ctx)
-            want = ntt_mr.mr_col_ntt_plain(x, tab["stw"], tab["inter"], ctx)
-            torch.cuda.synchronize()
-            assert torch.equal(from_mont(got.reshape(-1, 16), ctx),
-                               from_mont(want.reshape(-1, 16), ctx))
+        w = omega_for(field, log_n)
+        for omega in (w, pow(w, -1, field.MODULUS)):
+            plan = MrNttPlan(field, log_n, omega)
+            for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables("cuda"))):
+                f, g = lv["f"], lv["g"]
+                x = edge_mont(field, 1 << log_n, seed=log_n + li).to("cuda")
+                x = x.reshape(-1, f, g, 16)
+                got = ntt_mr.mr_col_ntt(x, tab["stw"], tab["inter"], ctx, tab["perm"])
+                want = ntt_mr.mr_col_ntt_plain(x, tab["stw"], tab["inter"], ctx, tab["perm"])
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"{name} 2^{log_n} level {li}"
+
+
+@pytest.mark.gpu
+def test_pallas_transform_equals_cg_transform_on_card():
+    """The 2^14 NTT=pallas transform (kernel 8's levels) gives kernel 1's
+    transform's canonical values, on edge inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    field = field_of("Fp")
+    ctx = FieldCtx(field)
+    a = edge_mont(field, 1 << 14, seed=14).to("cuda")
+    omega = omega_for(field, 14)
+    got = MrNttPlan(field, 14, omega)(a)
+    want = CgNttPlan(field, 14, omega)(a)
+    assert torch.equal(from_mont(got, ctx), from_mont(want, ctx))
