@@ -49,8 +49,16 @@ the kernels' launch counters set to 0 just before it and read just after:
 * the profiling tool: `halo2_tpu_torch.tools.profile_kernels.tilemul` over
   2^18 elements, which runs kernels 9 and 10 (eight chained Montgomery
   products per element; one mixed addition per point); both are then held
-  against their plain versions on the tool's inputs. Its `oplat` probe then
-  gives the clock cycles of one field operation on one thread.
+  against their plain versions on the tool's inputs (kernel 9 bit for bit,
+  kernel 10 on canonical values: it multiplies by 3b = 15 as 16 x - x), and
+  again at n = 1, 257 and 2^12 + 3 with the edge inputs 0, 1, p - 1, p,
+  2p - 1 and R mod p in the first rows, on Pallas and, in the kernels'
+  generic form, on BN254 (kernel 9 on its scalar field, kernel 10 on G1,
+  3b = 9; both bit for bit); `-Xptxas -v` must show no spill in
+  any kernel of csrc/tile_bench.cu. Its `oplat` probe then gives the clock
+  cycles of one field operation on one thread, and the card's measured rate
+  of 32-bit multiply instructions (mad.lo, mad.hi, their carry-chained
+  forms, mad.wide.u32) beside the rate the bounds assume.
 
 Each kernel is timed twice: `ms`, the median CUDA-event time of one call
 (host launch included), and `device_ms`, the CUDA-event time per call of ten
@@ -217,7 +225,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from halo2_tpu_torch.circuits import MulCircuit, bench_circuit_for_k
-    from halo2_tpu_torch.curves import Pallas, Vesta
+    from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
     from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
     from halo2_tpu_torch.ops import msm as msm_mod
@@ -488,10 +496,47 @@ def main() -> int:
     pallas_cc = CurveCtx(Pallas)
     fctx = pallas_cc.fctx
     n = tiles["n"]
-    same("tile_mul", tiles["mul_out"], tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), fctx,
-         "tile_mul: kernel != plain")
+    mul_plain = tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx)
+    require(torch.equal(tiles["mul_out"], mul_plain), "tile_mul: kernel != plain (limbs)")
+    same("tile_mul", tiles["mul_out"], mul_plain, fctx, "tile_mul: kernel != plain")
     for got, want in zip(tiles["padd_out"], tile_bench.tile_padd_plain(*tiles["pts"], pallas_cc)):
         same("tile_padd", got, want, fctx, "tile_padd: kernel != plain")
+
+    edge_rng = np.random.default_rng(20261017)  # apart from `rng`, so later phases keep their inputs
+
+    def tile_edge(n, shift, ctx):
+        """(n, 16) Montgomery limbs of ctx's field: the edge inputs 0, 1, p - 1,
+        p, 2p - 1 and R mod p (Montgomery 1), rotated by `shift`, in the first
+        12 rows, uniform values below 2p after them."""
+        p = ctx.p_int
+        edge = [0, 1, p - 1, p, 2 * p - 1, ctx.r_int]
+        vals = [edge[(i + shift) % len(edge)] if i < 12
+                else int.from_bytes(edge_rng.bytes(32), "little") % (2 * p) for i in range(n)]
+        return torch.as_tensor(ints_to_limbs(vals), device=dev)
+
+    # Pallas takes the Pasta form (3b = 15 as 16 x - x: canonical values);
+    # BN254's G1 (3b = 9) and scalar field the generic form (raw limbs)
+    bn_cc = CurveCtx(Bn254G1)
+    for n_edge in (1, 257, (1 << 12) + 3):  # ragged: 256 threads a block divides none of them
+        for mctx in (fctx, FieldCtx(FrBn)):
+            a_e, b_e = tile_edge(n_edge, 0, mctx), tile_edge(n_edge, 1, mctx)
+            require(torch.equal(tile_bench.tile_mul(a_e, b_e, mctx),
+                                tile_bench.tile_mul_plain(a_e, b_e, mctx)),
+                    f"tile_mul n={n_edge} p={mctx.p_int:#x}: kernel != plain (limbs) on edge inputs")
+        pts_e = [tile_edge(n_edge, s, fctx) for s in range(5)]
+        for got, want in zip(tile_bench.tile_padd(*pts_e, pallas_cc),
+                             tile_bench.tile_padd_plain(*pts_e, pallas_cc)):
+            same("tile_padd", got, want, fctx, f"tile_padd n={n_edge}: kernel != plain on edge inputs")
+        pts_e = [tile_edge(n_edge, s, bn_cc.fctx) for s in range(5)]
+        require(all(torch.equal(g, w) for g, w in zip(tile_bench.tile_padd(*pts_e, bn_cc),
+                                                      tile_bench.tile_padd_plain(*pts_e, bn_cc))),
+                f"tile_padd n={n_edge} on Bn254G1: kernel != plain (limbs) on edge inputs")
+    ptxas = _build.ptxas_usage("tile_bench")
+    require(all(u.get("spill_bytes") == 0 for u in ptxas.values()), f"tile_bench.cu spills: {ptxas}")
+    registers = {  # the kernels on Pallas (Pasta form, 3b = 15)
+        "tile_mul": ptxas["mul_kernel<1>"]["registers"],
+        "tile_padd": ptxas["padd_kernel<1,1>"]["registers"],
+    }
     mul = mont_mul_instrs(fctx.p_int)
     for name, kern, plain, nbytes, muls, replaces, per in (
         ("tile_mul", lambda: tile_bench.tile_mul(tiles["a"], tiles["b"], fctx),
@@ -507,14 +552,18 @@ def main() -> int:
             ms=tiles["mul_ms" if name == "tile_mul" else "padd_ms"], device_ms=device_ms(kern),
             plain_ms=time_ms(plain, 1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=f"n={n} (Pallas)",
-            **{per: tiles[per]})
+            registers=registers[name], **{per: tiles[per]})
         emit({"phase": "time", "kernel": name, **report[name]})
     emit({"phase": "profile_tilemul", "n": n, "exact": True, "launches": tile_launches,
-          "seconds": time.perf_counter() - t0})
-    # the tool's latency probe: cycles of one field operation on one thread
-    # (fe_mul against the carry-chain forms kernels 1 and 7 use), each
-    # checked against its plain version
-    emit({"phase": "op_latency", "cycles_per_op": profile_kernels.oplat(256, device=dev),
+          "ptxas_tile_bench": ptxas, "seconds": time.perf_counter() - t0})
+    # the tool's probes: cycles of one field operation on one thread (fe_mul
+    # against the carry-chain forms), each checked against its plain
+    # version, and the card's rate of 32-bit multiply instructions beside
+    # the one every operations bound assumes
+    lat = profile_kernels.oplat(256, device=dev)
+    emit({"phase": "op_latency", "cycles_per_op": {op: lat[op] for op in tile_bench.OPS},
+          "int32_mul_per_s": {"assumed": INT32_MUL_PER_S,
+                              **{form: lat[f"{form}_per_s"] for form in tile_bench.PEAK_FORMS}},
           "exact": True})
 
     # ---- kernels 2-4: bucket MSM ----
@@ -1099,6 +1148,7 @@ def main() -> int:
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                         "shape": rec["shape"], "ms_per_warm_proof": per_proof.get(name),
+                        **({"registers": rec["registers"]} if "registers" in rec else {}),
                         **({"at_c8": rec["at_c8"], "ms_per_k16_proof": bucket_proof_ms[name],
                             "launches_k16": launches16[name]} if "at_c8" in rec else {}),
                         **({"levels": rec["levels"], "launches_k16": launches16[name]}

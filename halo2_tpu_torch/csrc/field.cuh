@@ -111,19 +111,25 @@ inline bool pasta_form(const FieldConsts& k) {
          k.n0 == 0xFFFFFFFFu;
 }
 
-// The same CIOS product with PTX carry chains (mad.lo.cc / madc.hi.cc /
-// addc): 34 multiply-adds a word of b, against fe_mul's 64-bit adds, which
-// emulate each carry with a compare or a second add. The carry flag is one,
-// so the chain is the latency: kPasta (p of pasta_form, checked by the
-// caller) adds m p as m + 2^32 m d' + 2^254 m, with m d' formed by six
-// products off the chain, 29 chained instructions a word instead of 34. On
-// one thread of an H100 a product takes about 1 145 cycles (910 in the
-// Pasta form) against fe_mul's 1 650 (`profile_kernels oplat`).
-// Both return the integer fe_mul returns, (a*b + M*p) / 2^256 with
+// The same CIOS product with PTX carry chains: each row's word products
+// a_j b_i by mul.wide.u32, their low and high words added into t by two add
+// chains (add.cc / addc), against fe_mul's 64-bit adds, which emulate each
+// carry with a compare or a second add. The carry flag is one, so the chain
+// is the latency: kPasta (p of pasta_form, checked by the caller) adds m p
+// as m + 2^32 m d' + 2^254 m, with m d' formed by six products off the
+// chain. `profile_kernels oplat` gives a product's cycles on one thread
+// beside fe_mul's (PERF.md has them). Rows of mad.lo.cc / madc.hi.cc
+// chains give the same integers, but ptxas splits every madc into a
+// multiply and an IADD3.X anyway, and a mul.wide costs about what a mad.lo
+// and a mad.hi cost together (`profile_kernels oplat`, mul_peak), so the
+// wide rows leave fewer instructions on the multiply pipe, which bounds the
+// throughput kernels 9 and 10.
+// It returns the integer fe_mul returns, (a*b + M*p) / 2^256 with
 // M = -a*b/p mod 2^256 and no final subtraction: for inputs below 2p + 2^126
 // every partial sum of a row stays below 2^288 (9 words) and every row's
 // result below 2^256 (see the note at the head of this file), so no carry
-// leaves the 9 words. Kernels 1 and 7 use it; the other kernels keep fe_mul.
+// leaves the 9 words. Kernels 1, 4, 7, 8, 9 and 10 use it; kernels 2, 3, 5
+// and 6 keep fe_mul.
 template <bool kPasta>
 __device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const FieldConsts& k) {
   uint32_t t[9];
@@ -134,16 +140,22 @@ __device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const FieldCon
     const uint32_t bi = b.v[i];
     // t += a * b_i: the low halves into words 0-7 (the carry into word 8),
     // then the high halves into words 1-8
-    asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(a.v[0]), "r"(bi));
+    uint32_t lo[8], hi[8];
 #pragma unroll
-    for (int j = 1; j < 8; ++j)
-      asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(a.v[j]), "r"(bi));
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t w = (uint64_t)a.v[j] * bi;
+      lo[j] = (uint32_t)w;
+      hi[j] = (uint32_t)(w >> 32);
+    }
+    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(t[0]) : "r"(lo[0]));
+#pragma unroll
+    for (int j = 1; j < 8; ++j) asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[j]) : "r"(lo[j]));
     asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[8]));
-    asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(a.v[0]), "r"(bi));
+    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(t[1]) : "r"(hi[0]));
 #pragma unroll
     for (int j = 1; j < 7; ++j)
-      asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(a.v[j]), "r"(bi));
-    asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(t[8]) : "r"(a.v[7]), "r"(bi));
+      asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(t[j + 1]) : "r"(hi[j]));
+    asm volatile("addc.u32 %0, %0, %1;" : "+r"(t[8]) : "r"(hi[7]));
     // t += m * p with m = t_0 * n0, which clears word 0
     if (kPasta) {
       const uint32_t m = 0u - t[0];
@@ -224,7 +236,8 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConsts
 }
 
 // fe_add and fe_sub with PTX carry chains: the same results in about 96
-// cycles on one thread against 160 and 190 (kernels 1 and 7 use them).
+// cycles on one thread against 160 and 190 (the kernels of fe_mul_cc use
+// them).
 __device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const FieldConsts& k) {
   Fe s, d;
   uint32_t c;
@@ -300,6 +313,100 @@ __device__ __forceinline__ Pt pt_add_mixed(const Pt& a, const Fe& X2, const Fe& 
   t0 = fe_mul(t0, t3, k);
   Z3 = fe_mul(Z3, t4, k);
   Z3 = fe_add(Z3, t0, k);
+  Pt r;
+  r.x = X3;
+  r.y = Y3;
+  r.z = Z3;
+  return r;
+}
+
+// 15 x mod p for a Pasta p (p = 2^254 + d, d < 2^126, so 2p = 2^255 + 2d with
+// 2d in words 0-3): v = 16 x - x < 2^260, q = v >> 255, then
+// (v mod 2^255) - 2 q d, plus 2p if that borrowed. Below 2p for any 8-word
+// x, and congruent to the Montgomery product by 3b R mod p of a curve with
+// 3b = 15 (b = 5: Pallas and Vesta), but not always the same representative.
+// Two subtraction chains, an addition chain and four small wide products,
+// against a product's 176 multiplies or four doublings' eight chains.
+__device__ __forceinline__ Fe fe_mul15_pasta(const Fe& x, const FieldConsts& k) {
+  uint32_t x16[9], v[9];
+  x16[0] = x.v[0] << 4;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) x16[i] = __funnelshift_l(x.v[i - 1], x.v[i], 4);
+  x16[8] = x.v[7] >> 28;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(v[0]) : "r"(x16[0]), "r"(x.v[0]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(v[i]) : "r"(x16[i]), "r"(x.v[i]));
+  asm volatile("subc.u32 %0, %1, 0;" : "=r"(v[8]) : "r"(x16[8]));
+  const uint32_t q = (v[8] << 1) | (v[7] >> 31);
+  v[7] &= 0x7FFFFFFFu;
+  // q 2d < 2^132 in words 0-4
+  const uint64_t w0 = (uint64_t)q * k.twop[0];
+  const uint64_t w1 = (uint64_t)q * k.twop[1] + (w0 >> 32);
+  const uint64_t w2 = (uint64_t)q * k.twop[2] + (w1 >> 32);
+  const uint64_t w3 = (uint64_t)q * k.twop[3] + (w2 >> 32);
+  Fe r;
+  uint32_t m;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r.v[0]) : "r"(v[0]), "r"((uint32_t)w0));
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r.v[1]) : "r"(v[1]), "r"((uint32_t)w1));
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r.v[2]) : "r"(v[2]), "r"((uint32_t)w2));
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r.v[3]) : "r"(v[3]), "r"((uint32_t)w3));
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r.v[4]) : "r"(v[4]), "r"((uint32_t)(w3 >> 32)));
+#pragma unroll
+  for (int i = 5; i < 8; ++i) asm volatile("subc.cc.u32 %0, %1, 0;" : "=r"(r.v[i]) : "r"(v[i]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(m));  // all ones iff it borrowed
+  asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(r.v[0]) : "r"(k.twop[0] & m));
+#pragma unroll
+  for (int i = 1; i < 7; ++i) asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(r.v[i]) : "r"(k.twop[i] & m));
+  asm volatile("addc.u32 %0, %0, %1;" : "+r"(r.v[7]) : "r"(k.twop[7] & m));
+  return r;
+}
+
+// pt_add_mixed's operation sequence on the carry-chain forms (kernel 10;
+// kernels 2 and 5 keep pt_add_mixed): fe_mul_cc<kPasta>, fe_add_cc,
+// fe_sub_cc. With kB15 (a Pasta modulus and 3b = 15) the two products by 3b
+// are fe_mul15_pasta, so the coordinates are pt_add_mixed's up to their
+// representatives (equal canonical values); without it they are
+// pt_add_mixed's integers.
+template <bool kPasta, bool kB15>
+__device__ __forceinline__ Pt pt_add_mixed_cc(const Pt& a, const Fe& X2, const Fe& Y2,
+                                              const FieldConsts& k) {
+  static_assert(kPasta || !kB15, "fe_mul15_pasta needs a Pasta modulus");
+  Fe t0 = fe_mul_cc<kPasta>(a.x, X2, k);
+  Fe t1 = fe_mul_cc<kPasta>(a.y, Y2, k);
+  Fe t3 = fe_add_cc(X2, Y2, k);
+  Fe t4 = fe_add_cc(a.x, a.y, k);
+  t3 = fe_mul_cc<kPasta>(t3, t4, k);
+  t4 = fe_add_cc(t0, t1, k);
+  t3 = fe_sub_cc(t3, t4, k);
+  t4 = fe_mul_cc<kPasta>(Y2, a.z, k);
+  t4 = fe_add_cc(t4, a.y, k);
+  Fe Y3 = fe_mul_cc<kPasta>(X2, a.z, k);
+  Y3 = fe_add_cc(Y3, a.x, k);
+  Fe X3 = fe_add_cc(t0, t0, k);
+  t0 = fe_add_cc(X3, t0, k);
+  Fe t2;
+  if constexpr (kB15) {
+    t2 = fe_mul15_pasta(a.z, k);
+  } else {
+    t2 = fe_mul_cc<kPasta>(fe_from(k.b3), a.z, k);
+  }
+  Fe Z3 = fe_add_cc(t1, t2, k);
+  t1 = fe_sub_cc(t1, t2, k);
+  if constexpr (kB15) {
+    Y3 = fe_mul15_pasta(Y3, k);
+  } else {
+    Y3 = fe_mul_cc<kPasta>(fe_from(k.b3), Y3, k);
+  }
+  X3 = fe_mul_cc<kPasta>(t4, Y3, k);
+  t2 = fe_mul_cc<kPasta>(t3, t1, k);
+  X3 = fe_sub_cc(t2, X3, k);
+  Y3 = fe_mul_cc<kPasta>(Y3, t0, k);
+  t1 = fe_mul_cc<kPasta>(t1, Z3, k);
+  Y3 = fe_add_cc(t1, Y3, k);
+  t0 = fe_mul_cc<kPasta>(t0, t3, k);
+  Z3 = fe_mul_cc<kPasta>(Z3, t4, k);
+  Z3 = fe_add_cc(Z3, t0, k);
   Pt r;
   r.x = X3;
   r.y = Y3;

@@ -230,7 +230,7 @@ def msm_fold(buckets: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
         return msm_fold_plain(buckets, cc)
     rows, T, B, _, _ = buckets.shape
     l = _fold_log_segment(B, None)
-    _build.check_tensor(buckets, (rows, T, B, 3, NLIMBS), "buckets", buckets.device)
+    _build.check_tensor(buckets, (rows, T, B, 3, NLIMBS), "buckets", buckets.device, align=16)
     out = torch.empty((rows, 3, NLIMBS, T), dtype=torch.int32, device=buckets.device)
     lib = _build.load("msm_bucket", _SIG)
     err = lib.msm_fold(buckets.data_ptr(), out.data_ptr(), rows, B, T, l,

@@ -219,12 +219,10 @@ def _check_inputs(entries, gstart, px, py) -> None:
     dev = entries.device
     _build.check_tensor(entries, (nw, n), "entries", dev)
     _build.check_tensor(gstart, (nw, LANES + 2), "gstart", dev)
-    _build.check_tensor(px, (px.shape[0], NLIMBS), "px", dev)
-    _build.check_tensor(py, tuple(px.shape), "py", dev)
+    _build.check_tensor(px, (px.shape[0], NLIMBS), "px", dev, align=16)
+    _build.check_tensor(py, tuple(px.shape), "py", dev, align=16)
     if px.shape[0] < n:
         raise ValueError(f"msm_sorted: {n} scalars but {px.shape[0]} bases")
-    if px.data_ptr() % 16 or py.data_ptr() % 16:
-        raise ValueError("msm_sorted: the base tables must be 16-byte aligned (vector loads)")
 
 
 # ---------------- kernel 6: fold ----------------
@@ -356,13 +354,11 @@ def msm_sorted_fold(buckets, entries, gstart, px, py, cc: CurveCtx) -> torch.Ten
     nw, n = entries.shape
     dev = buckets.device
     _check_inputs(entries, gstart, px, py)
-    _build.check_tensor(buckets, (nw, LANES, KB, 3, NLIMBS), "buckets", dev)
+    _build.check_tensor(buckets, (nw, LANES, KB, 3, NLIMBS), "buckets", dev, align=16)
     l, threads = _fold_geometry()
     nbk = ((1 << BUCKET_BITS) >> l) // threads
     part = torch.empty((nw, nbk, 2, 3, NLIMBS), dtype=torch.int32, device=dev)
     out = torch.empty((nw, 3, NLIMBS), dtype=torch.int32, device=dev)
-    if buckets.data_ptr() % 16:
-        raise ValueError("msm_sorted_fold: the bucket tensor must be 16-byte aligned")
     lib = _build.load("msm_sorted", _SIG)
     err = lib.msm_sorted_fold(buckets.data_ptr(), entries.data_ptr(), gstart.data_ptr(),
                               px.data_ptr(), py.data_ptr(), part.data_ptr(), out.data_ptr(),
@@ -393,7 +389,7 @@ def msm_sorted_horner(wins: torch.Tensor, cc: CurveCtx) -> torch.Tensor:
     if not _build.on_card(wins, "msm_sorted_horner"):
         return msm_sorted_horner_plain(wins, cc)
     nw = wins.shape[0]
-    _build.check_tensor(wins, (nw, 3, NLIMBS), "wins", wins.device)
+    _build.check_tensor(wins, (nw, 3, NLIMBS), "wins", wins.device, align=16)
     out = torch.empty((3, NLIMBS), dtype=torch.int32, device=wins.device)
     lib = _build.load("msm_sorted", _SIG)
     err = lib.msm_sorted_horner(wins.data_ptr(), out.data_ptr(), nw, ctypes.byref(_consts(cc)),

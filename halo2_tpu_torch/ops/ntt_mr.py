@@ -101,10 +101,10 @@ def mr_col_ntt(x: torch.Tensor, stw: torch.Tensor, inter: Optional[torch.Tensor]
     if f != 1 << log_f or log_f < 1 or log_f > 10 or g != 1 << log_g:
         raise ValueError(f"mr_col_ntt: f = {f} must be a power of two in [2, 1024], "
                          f"and g = {g} a power of two")
-    _build.check_tensor(x, (B, f, g, NLIMBS), "x", x.device)
-    _build.check_tensor(stw, (log_f, f // 2, NLIMBS), "stw", x.device)
+    _build.check_tensor(x, (B, f, g, NLIMBS), "x", x.device, align=16)
+    _build.check_tensor(stw, (log_f, f // 2, NLIMBS), "stw", x.device, align=16)
     if inter is not None:
-        _build.check_tensor(inter, (g, f, NLIMBS), "inter", x.device)
+        _build.check_tensor(inter, (g, f, NLIMBS), "inter", x.device, align=16)
     if perm is not None:
         if g != 1:
             raise ValueError("mr_col_ntt: perm is for the last level (g = 1)")

@@ -1,10 +1,10 @@
 """Times the bucket MSM's kernels 2-4, the sorted MSM's kernels 5-7 and the
 BenchCircuit proofs of one tree of this repository (with `--ntt`, the NTT
-kernels 1 and 8 and kernels 9-10), so that two trees (a
-parent commit unpacked beside the checkout, and the checkout) can be read on
-one card in one run.
+kernels 1 and 8 and kernels 9-10; with `--tile`, kernels 9 and 10), so that
+two trees (a parent commit unpacked beside the checkout, and the checkout)
+can be read on one card in one run.
 
-    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--sweep] [--proofs]
+    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--tile] [--sweep] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -54,6 +54,26 @@ shape and, with `--proofs`, per proof:
   representatives); and, to show that the kernels it leaves alone keep
   their times, kernels 9 and 10 through the profiling tool's `tilemul` at
   2^18 elements;
+- with `--tile`, in place of the bucket shapes: kernels 9 and 10 through
+  the profiling tool's `tilemul` inputs at 2^18 elements (canonical values
+  below 2^254 from its numpy seed, the same on every tree): for each, the
+  median CUDA-event time and the device time, the sha256 of kernel 9's
+  output limbs, which must be equal on the parent and the change, and of
+  kernel 10's outputs as limbs and as canonical values (its multiply by
+  3b = 15 as 16 x - x leaves other representatives than the parent's
+  Montgomery product, so only the canonical hash must be equal), whether
+  each equals its plain version (kernel 9 on limbs, kernel 10 on canonical
+  values), the `-Xptxas -v` lines of the build of the library it loaded
+  (entry function, spills, registers; a tree whose logs are not keyed to
+  their library reports them only while its build directory holds one
+  tile_bench library) and the SASS instruction mix of the two kernels as the
+  tree launches them on Pallas (`cuobjdump -sass` of its library:
+  instructions by opcode); with `--sweep` (trees whose build takes `-D`
+  defines), csrc/tile_bench.cu built again at each pair of TILE_SWEEP
+  (kernel 9's and kernel 10's threads a block and min blocks an SM), and for
+  each the registers and spills, and the device time of each kernel with
+  its output checked against the default build's (kernel 9 on limbs, kernel
+  10 on canonical values);
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -64,10 +84,14 @@ It needs a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -89,6 +113,11 @@ LEVEL_SWEEP = (32, 64, 128, 256, 512)
 # threads a block of kernel 4 (a row a block, 4 lanes an addition at the first level)
 LANE_REDUCE_SWEEP = (64, 128, 256)
 NTT_LOG_F_SWEEP = (6, 7, 8, 9)
+# (kernel 9's, kernel 10's) (threads a block, min blocks an SM of
+# __launch_bounds__), one build of csrc/tile_bench.cu each; the default
+# build's are (256, 1) and (256, 2)
+TILE_SWEEP = (((128, 1), (128, 3)), ((256, 1), (128, 4)), ((512, 1), (256, 1)),
+              ((1024, 1), (256, 2)))
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -321,11 +350,103 @@ def ntt_section(dev, rng, sweep: bool = False) -> None:
           "other_kernels_device_ms": {"tile_mul": device_ms(mul), "tile_padd": device_ms(padd)}})
 
 
+def sass_mix(lib: str, names: dict) -> dict:
+    """{label: {opcode: count}} of the SASS of each kernel of `lib` whose
+    mangled name holds names[label] (`cuobjdump -sass`, predicates and
+    operands dropped)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    mix, label = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            label = next((k for k, v in names.items() if v in fn), None)
+            if label is not None:
+                mix[label] = collections.Counter()
+        elif label is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                mix[label][m.group(1)] += 1
+    return {k: dict(c.most_common()) for k, c in mix.items()}
+
+
+def tile_section(dev, sweep: bool = False, n: int = 1 << 18) -> None:
+    """Kernels 9 and 10 at n elements (see the module's docstring); the
+    modules are the tree's own."""
+    from halo2_tpu_torch.curves import Pallas
+    from halo2_tpu_torch.ops import _build, tile_bench
+    from halo2_tpu_torch.ops.curve import CurveCtx
+    from halo2_tpu_torch.ops.field import from_mont
+    from halo2_tpu_torch.tools import profile_kernels
+
+    cc = CurveCtx(Pallas)
+    ctx = cc.fctx
+    tiles = profile_kernels.tilemul(n, device=dev)
+    a, b, pts = tiles["a"], tiles["b"], tiles["pts"]
+
+    def mul():
+        return tile_bench.tile_mul(a, b, ctx)
+
+    def padd():
+        return tile_bench.tile_padd(*pts, cc)
+
+    def digest(ts):
+        return hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()
+
+    def canon(ts):
+        return [from_mont(t, ctx) for t in ts]
+
+    y, r = mul(), padd()
+    emit({"tile": "tile_mul", "n": n, "ms": time_ms(mul), "device_ms": device_ms(mul),
+          "output_sha256": digest([y]),
+          "equals_plain_limbs": torch.equal(y, tile_bench.tile_mul_plain(a, b, ctx))})
+    rc = canon(r)
+    emit({"tile": "tile_padd", "n": n, "ms": time_ms(padd), "device_ms": device_ms(padd),
+          "output_sha256": digest(r), "canonical_sha256": digest(rc),
+          "equals_plain_canonical": all(torch.equal(u, v) for u, v in zip(
+              rc, canon(tile_bench.tile_padd_plain(*pts, cc))))})
+    keep = ("Compiling entry function", "spill stores", "Used ")
+    if hasattr(_build, "log_path"):  # logs keyed to their library
+        log = _build.log_path("tile_bench")
+        names = {"tile_mul": "mul_kernelILb1EE", "tile_padd": "padd_kernelILb1ELb1EE"}
+    else:
+        libs = list(_build.BUILD.glob("libtile_bench-*.so"))
+        log = _build.BUILD / "tile_bench.log"
+        log = log if len(libs) == 1 and log.exists() else None
+        names = {"tile_mul": "tile_mul_kernel", "tile_padd": "tile_padd_kernel"}
+    emit({"tile": "ptxas", "log": str(log), "lines": None if log is None else [
+        " ".join(line.split()) for line in log.read_text().splitlines()
+        if any(k in line for k in keep)]})
+    emit({"tile": "sass", "opcodes": sass_mix(str(_build._target("tile_bench")), names)})
+    if not (sweep and hasattr(_build, "log_path")):
+        return
+    variants = [tuple(f"TILE_{k}_{v}={x}" for k, geo in (("MUL", g9), ("PADD", g10))
+                      for v, x in zip(("THREADS", "MIN_BLOCKS"), geo))
+                for g9, g10 in TILE_SWEEP]
+    emit({"sweep": "tile_build", "seconds": _build.build_all(["tile_bench"], variants)})
+    default = _build._libs[("tile_bench", ())]
+    try:
+        for (g9, g10), defs in zip(TILE_SWEEP, variants):
+            # the wrappers launch the variant's kernels
+            _build._libs[("tile_bench", ())] = _build.load("tile_bench", tile_bench._SIG, defs)
+            usage = _build.ptxas_usage("tile_bench", defs)
+            emit({"sweep": "tile_mul", "threads_min_blocks": g9,
+                  "ptxas": usage["mul_kernel<1>"], "same_output": torch.equal(mul(), y),
+                  "device_ms": device_ms(mul)})
+            emit({"sweep": "tile_padd", "threads_min_blocks": g10,
+                  "ptxas": usage["padd_kernel<1,1>"],
+                  "same_canonical": all(torch.equal(u, v) for u, v in zip(canon(padd()), rc)),
+                  "device_ms": device_ms(padd)})
+    finally:
+        _build._libs[("tile_bench", ())] = default
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--sorted", action="store_true")
     ap.add_argument("--ntt", action="store_true")
+    ap.add_argument("--tile", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--proofs", action="store_true")
     ns = ap.parse_args(argv)
@@ -360,6 +481,9 @@ def main(argv=None) -> int:
     )
     if ns.ntt:
         ntt_section(dev, np.random.default_rng(20261018), ns.sweep)
+        bucket_shapes = ()
+    if ns.tile:
+        tile_section(dev, ns.sweep)
         bucket_shapes = ()
     if ns.sorted:
         sorted_section(ParamsIPA.cached(Vesta, 16, device=dev), msm_bucket, msm_sorted, dev, rng,

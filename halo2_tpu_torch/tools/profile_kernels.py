@@ -16,6 +16,11 @@ Sections:
   thread, each of `tile_bench.OPS` run n times in a dependent chain (default
   256) on Pasta's Fq: clock cycles per operation, the result checked against
   the plain version (the card's own `mont_mul` / `add_mod` / `sub_mod`).
+  Then the card's throughput of 32-bit multiply instructions, each form of
+  `tile_bench.PEAK_FORMS` (mad.lo, mad.hi, their carry-chained forms,
+  mad.wide.u32) on 8 blocks of 256 threads an SM, 4096 steps a thread,
+  checked against the plain version over 16 steps first; on the CPU only
+  the check runs.
 - `msm_accum [K]`: the bucket MSM's kernels 2-4 (`ops/msm_bucket.py`)
   separately, at 2^K points (default 16) over 2^10 random Pallas bases
   repeated.
@@ -119,6 +124,34 @@ def oplat(n: int = 256, *, device, seed: int = 3) -> dict:
             raise AssertionError(f"op_chain {op}: kernel != plain")
         out[op] = None if cycles is None else cycles / n
         print(f"{op}: {out[op]} cycles per operation, chain of {n}", flush=True)
+    out.update(mul_rate(device))
+    return out
+
+
+def mul_rate(device, iters: int = 4096, check_iters: int = 16) -> dict:
+    """Instructions per second of each multiply form of tile_bench.PEAK_FORMS
+    over a full-card grid (None on the CPU), each checked against its plain
+    version."""
+    on_card = device.type == "cuda"
+    blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count if on_card else 1
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 1 << 32, (blocks * tile_bench.PEAK_THREADS, tile_bench.PEAK_CHAINS),
+                         dtype=np.uint64)
+    acc0 = torch.as_tensor(words.astype(np.uint32).view(np.int32), device=device)
+    out = {}
+    for form, per_step in tile_bench.PEAK_FORMS.items():
+        got = tile_bench.mul_peak(acc0.clone(), check_iters, form)
+        if not torch.equal(got, tile_bench.mul_peak_plain(acc0, check_iters, form)):
+            raise AssertionError(f"mul_peak {form}: kernel != plain")
+        rate = None
+        if on_card:
+            acc = acc0.clone()
+            secs = timeit(lambda: tile_bench.mul_peak(acc, iters, form), device, iters=3, warm=1)
+            rate = acc.shape[0] * per_step * iters / secs
+        out[f"{form}_per_s"] = rate
+        print(f"{form}: {'not measured' if rate is None else f'{rate:.6e}'} instructions/s, "
+              f"{blocks} blocks x {tile_bench.PEAK_THREADS} threads x {per_step} a step x "
+              f"{iters} steps", flush=True)
     return out
 
 
