@@ -10,9 +10,14 @@ each MSM also against msm_host, kernel 4 bit for bit, also on parts that hold
 the identity, a pair P, P and a pair P, -P; kernel 1 bit for bit at every
 level of the 2^14 and 2^16 plans, both directions, on edge inputs 0, 1,
 p - 1 and 2p - 1 beside values below 2p, and timed at every level of both;
-kernel 7 also on identity, equal and opposite windows), reproduces the
-golden proof bytes of MulCircuit (k = 4), and drives four paths, each with
-the kernels' launch counters set to 0 just before it and read just after:
+kernel 7 also on identity, equal and opposite windows). Kernels 1-7 are held
+the same way in their generic form, on BN254 (the KZG backend's curve):
+kernel 1 over its scalar field FrBn at 2^14 and 2^16, kernels 2-4 on its G1
+(3b = 9) at the KZG commit shape M = 3, n = 2^14, c = 4, kernels 5-7 at
+n = 2^16 + 1, on bases (i + 1) G made by a host addition chain, each timed
+beside its Pasta-form row. The script reproduces the golden proof bytes of
+MulCircuit (k = 4), and drives five paths, each with the kernels' launch
+counters set to 0 just before it and read just after:
 
 * k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
   verify_proof for BenchCircuit, which runs kernels 1-4; the proof has the
@@ -21,6 +26,15 @@ the kernels' launch counters set to 0 just before it and read just after:
   by CUDA events and every kernel on the card traced by torch.profiler, which
   gives the device time of one proof; and reproduces the proof bytes of
   BenchCircuit at k = 10.
+* KZG at k = 14 (route `kzg14`): ParamsKZG (BN254) -> keygen_vk ->
+  keygen_pk -> create_proof (SHPLONK, Blake2b) -> verify_proof (a pairing
+  check on the host) for BenchCircuit over FrBn, which runs kernels 1-4 in
+  their generic form; the proof has the pinned bytes
+  (BENCH_KZG_K14_PROOF_SHA256), verifies, rejects a flipped byte, and a warm
+  proof repeats them; a third proof is traced as at k = 14 above; one GWC
+  proof with the Keccak256 transcript proves and verifies. BenchCircuit over
+  FrBn at k = 10 then gives the JAX package's bytes
+  (BENCH_KZG_K10_PROOF_SHA256).
 * k = 16: the same entry points for BenchCircuit at k = 16, where keygen's
   sigma commits, the vanishing argument's random commit and the verifier's
   final MSM take the sorted-bucket MSM (kernels 5-7) and every other MSM the
@@ -28,8 +42,7 @@ the kernels' launch counters set to 0 just before it and read just after:
   beside kernels 5-7; kernel 1's launches counted too). The proof has the
   pinned bytes (BENCH_K16_PROOF_SHA256)
   and verifies, a flipped byte is rejected, and the proof made again with the sorted MSM
-  switched off, then once more with it on, has the same bytes (those two
-  proofs are both warm, so their times compare); commit_lagrange(v) =
+  switched off has the same bytes; commit_lagrange(v) =
   commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
   their plain versions and msm_host at n = 2^16 + 1, kernels 5 and 6 also on
   scalars below 2^127 with zero rows (windows 8-15 empty; that MSM against
@@ -98,6 +111,13 @@ BENCH_K10_PROOF_SHA256 = "08b4952d1b1cac2b4951ac6097ac2f6a260cddc729bb0d54cb788d
 # (halo2_tpu_torch/tools/msm_ab.py --proofs on that commit).
 BENCH_K14_PROOF_SHA256 = "24f3939ad97fc72b182872d727af9089a4beff8e3801f72c6d2e0c16be9f29d9"
 BENCH_K16_PROOF_SHA256 = "5f9b3d057d85eada10660f86ab6c2899182c7e6bfeb5ac0c247277506b23987f"
+# BenchCircuit over BN254's scalar field (the KZG path: SHPLONK, Blake2b), the
+# same seed and rng. At k = 10 the sha256 of the proof the JAX package makes on
+# the CPU on `ParamsKZG.cached(10)` (tests/test_torch_kzg.py names the
+# command); at k = 14 the sha256 of the first proof the port made on an H100
+# (this script, before it was pinned).
+BENCH_KZG_K10_PROOF_SHA256 = "c4f216e517414c290a95e4bcedcce5e50788bd68f868b06aff0eadb6ecc377fa"
+BENCH_KZG_K14_PROOF_SHA256 = "caeb836fcc28301792ec18ed652290d83dc5599474940f2192df3f3caa98785a"
 
 # Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
 # work the assumed peak is 64 32-bit multiply instructions per clock per SM
@@ -108,7 +128,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 64 * 132 * 1.98e9
 # Montgomery products per complete addition (RCB15, a = 0): 11 general
 # products for the mixed addition (alg. 8), 12 for the full one (alg. 7). Each
-# also multiplies twice by 3b = 15 on Pasta, which a shift and a subtraction do.
+# also multiplies twice by 3b (15 on Pasta, 9 on BN254's G1), which shifts and
+# additions can do, so the bounds leave those products out.
 MIXED_ADD_PRODUCTS = 11
 FULL_ADD_PRODUCTS = 12
 # RCB15 algorithm 9 (a = 0): 9 products, one of them by 3b
@@ -131,6 +152,19 @@ def mont_mul_instrs(p: int) -> int:
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def chain_points(curve, n: int):
+    """(i + 1) G for i < n, affine: a host addition chain, one inversion."""
+    from halo2_tpu_torch.curves import JAC_IDENTITY, Point, batch_to_affine, jac_add_affine
+
+    p = curve.p()
+    gx, gy = curve.generator().xy
+    acc, jac = JAC_IDENTITY, []
+    for _ in range(n):
+        acc = jac_add_affine(acc, gx, gy, p)
+        jac.append(acc)
+    return [Point(curve, xy) for xy in batch_to_affine(jac, p)]
 
 
 def bound(bytes_moved: float, mul_instrs: float):
@@ -166,6 +200,19 @@ def time_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(fn(), the CUDA-event time of that one call in ms): the plain versions
+    of kernels 2-7 take seconds, so the call made for a check is also the
+    one timed."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -239,8 +286,10 @@ def main() -> int:
     from halo2_tpu_torch.plonk.verifier import verify_proof
     from halo2_tpu_torch.poly.commitment import Blind
     from halo2_tpu_torch.poly.ipa import ParamsIPA
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
     from halo2_tpu_torch.tools import profile_kernels
-    from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite, TranscriptError
+    from halo2_tpu_torch.transcript import (Blake2bRead, Blake2bWrite, Keccak256Read, Keccak256Write,
+                                            TranscriptError)
     from halo2_tpu_torch.utils.chacha import ChaCha20Rng
     from halo2_tpu_torch.utils.measure import get_records, reset_records
 
@@ -269,6 +318,15 @@ def main() -> int:
         limbs[..., 15] &= top
         return torch.as_tensor(limbs.astype(np.int32), device=dev)
 
+    bn_rng = np.random.default_rng(20261018)  # BN254's inputs, apart from `rng`
+
+    def rand_below(shape, mod):
+        """Values uniform below `mod` (to 2^-66) as canonical 16-bit limbs,
+        from bn_rng: the sorted MSM's lane capacities assume scalars uniform
+        below the group order, whose top limb sets the top window's range."""
+        vals = [int.from_bytes(bn_rng.bytes(40), "little") % mod for _ in range(int(np.prod(shape)))]
+        return torch.as_tensor(ints_to_limbs(vals).reshape(*shape, 16), device=dev)
+
     errs = {}
 
     def same(name, a, b, ctx, what):
@@ -280,18 +338,19 @@ def main() -> int:
     def canon_equal(a, b, ctx=sctx):
         return torch.equal(from_mont(a.reshape(-1, 16), ctx), from_mont(b.reshape(-1, 16), ctx))
 
-    def level_bound(cols, f, tab, g):
-        """Bound of one NTT level over `cols` columns of f elements (Fp): each
-        element read and written once, the twiddle tables read once, and one
-        product per twiddle other than 1 (stage 0's are all 1, and so are
-        inter row 0 and the first entry of every inter row)."""
+    def level_bound(cols, f, tab, g, ctx=sctx):
+        """Bound of one NTT level over `cols` columns of f elements of ctx's
+        field (Fp by default): each element read and written once, the
+        twiddle tables read once, and one product per twiddle other than 1
+        (stage 0's are all 1, and so are inter row 0 and the first entry of
+        every inter row)."""
         inter = tab["inter"]
         nbytes = 4 * (cols * f * 16 * 2 + tab["stw"].numel() + (0 if inter is None else inter.numel()))
-        one = sctx.const(1, dev)
+        one = ctx.const(1, dev)
         prods = cols * int((tab["stw"] != one).any(-1).sum())
         if inter is not None:
             prods += int((inter != one).any(-1).sum(-1)[torch.arange(cols, device=dev) % g].sum())
-        return (*bound(nbytes, mont_mul_instrs(q) * prods), prods)
+        return (*bound(nbytes, mont_mul_instrs(ctx.p_int) * prods), prods)
 
     def edge_mont(n, p=q):
         """(n, 16) Montgomery limbs mod p (Fp by default): 0, 1, p - 1 and
@@ -339,58 +398,69 @@ def main() -> int:
     k16_kernels = list(msm_sorted.LAUNCHES)
     tool_kernels = list(tile_bench.LAUNCHES)
 
-    # ---- kernel 1: constant-geometry NTT level, every level of 2^14 and 2^16 ----
+    # ---- kernel 1: constant-geometry NTT level, every level of 2^14 and 2^16,
+    # on Fp (the Pasta form) and on BN254's FrBn (the generic form) ----
     t0 = time.perf_counter()
     cg_levels = []
-    for log_n in (14, 16):
+    for field, log_n in ((Fp, 14), (Fp, 16), (FrBn, 14), (FrBn, 16)):
+        fctx = FieldCtx(field)
+        p = field.MODULUS
         n = 1 << log_n
-        omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - log_n), q)
-        omega_inv = pow(omega, -1, q)
-        x = sctx.to_mont(rand_canon((n,)))
-        fwd = ntt_cg.CgNttPlan(Fp, log_n, omega)
-        inv = ntt_cg.CgNttPlan(Fp, log_n, omega_inv)
+        omega = pow(field.ROOT_OF_UNITY, 1 << (field.S - log_n), p)
+        omega_inv = pow(omega, -1, p)
+        x = fctx.to_mont(rand_canon((n,), 0x3FFF if field is Fp else 0x1FFF))  # below p
+        fwd = ntt_cg.CgNttPlan(field, log_n, omega)
+        inv = ntt_cg.CgNttPlan(field, log_n, omega_inv)
+        tag = f"{field.__name__} 2^{log_n}"
         # every level of both plans: kernel == plain, bit for bit, on edge inputs
         for plan in (fwd, inv):
             for li, (lv, tab) in enumerate(zip(plan.levels, plan._tables(dev))):
                 f, g = lv["f"], lv["g"]
-                xl = edge_mont(n).reshape(n // (f * g), f, g, 16)
-                yk = ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
-                yp = ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
-                require(torch.equal(yk, yp), f"cg_ntt_level 2^{log_n} level {li}: kernel != plain (limbs)")
-                same("cg_ntt_level", yk, yp, sctx, f"cg_ntt_level 2^{log_n} level {li}: kernel != plain")
+                xl = edge_mont(n, p).reshape(n // (f * g), f, g, 16)
+                yk = ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], fctx, tab["perm"])
+                yp = ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], fctx, tab["perm"])
+                require(torch.equal(yk, yp), f"cg_ntt_level {tag} level {li}: kernel != plain (limbs)")
+                same("cg_ntt_level", yk, yp, fctx, f"cg_ntt_level {tag} level {li}: kernel != plain")
         y = fwd(x)
-        require(canon_equal(y, NttPlan(Fp, log_n, omega)(x)), f"NTT 2^{log_n} != radix-2 reference")
-        back = sctx.mul(inv(y), sctx.const(pow(n, -1, q), dev))
-        require(canon_equal(back, x), f"inverse NTT 2^{log_n} does not invert")
-        xe = edge_mont(n)
-        require(canon_equal(fwd(xe), NttPlan(Fp, log_n, omega)(xe)), f"NTT 2^{log_n} on edge inputs")
+        require(canon_equal(y, NttPlan(field, log_n, omega)(x), fctx), f"NTT {tag} != radix-2 reference")
+        back = fctx.mul(inv(y), fctx.const(pow(n, -1, p), dev))
+        require(canon_equal(back, x, fctx), f"inverse NTT {tag} does not invert")
+        xe = edge_mont(n, p)
+        require(canon_equal(fwd(xe), NttPlan(field, log_n, omega)(xe), fctx), f"NTT {tag} on edge inputs")
         ms_full = time_ms(lambda: fwd(x))
         # each level of the forward plan, timed at its own shape
         for li, (lv, tab) in enumerate(zip(fwd.levels, fwd._tables(dev))):
             f, g = lv["f"], lv["g"]
             xl = x.reshape(n // (f * g), f, g, 16)
-            b_ms, b_by, prods = level_bound(n // f, f, tab, g)
+            b_ms, b_by, prods = level_bound(n // f, f, tab, g, fctx)
 
             def level():
-                return ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], sctx, tab["perm"])
+                return ntt_cg.cg_ntt_level(xl, tab["stw"], tab["inter"], fctx, tab["perm"])
 
-            row = dict(log_n=log_n, level=li, f=f, g=g, products=prods, bound_ms=b_ms, bound_by=b_by,
-                       ms=time_ms(level), device_ms=device_ms(level))
+            row = dict(field=field.__name__, log_n=log_n, level=li, f=f, g=g, products=prods,
+                       bound_ms=b_ms, bound_by=b_by, ms=time_ms(level), device_ms=device_ms(level))
             if (log_n, li) == (16, 0):
                 row["plain_ms"] = time_ms(
-                    lambda: ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], sctx, tab["perm"]), 2)
+                    lambda: ntt_cg.cg_ntt_level_plain(xl, tab["stw"], tab["inter"], fctx, tab["perm"]), 2)
             cg_levels.append(row)
             emit({"phase": "time", "kernel": "cg_ntt_level", **row})
-        emit({"phase": "ntt", "log_n": log_n, "exact": True, "full_transform_ms": ms_full,
+        emit({"phase": "ntt", "field": field.__name__, "log_n": log_n, "exact": True,
+              "full_transform_ms": ms_full, "transform_device_ms": device_ms(lambda: fwd(x)),
               "levels": [(lv["f"], lv["g"]) for lv in fwd.levels]})
-    first = cg_levels[2]  # the first level of 2^16: the kernel's row
+
+    def first_level(field):  # the first level of 2^16: the kernel's row in each form
+        return next(r for r in cg_levels if (r["field"], r["log_n"], r["level"]) == (field, 16, 0))
+
+    first, first_bn = first_level("Fp"), first_level("FrBn")
     report["cg_ntt_level"] = dict(
         route="cuda", source="halo2_tpu_torch/csrc/ntt_cg.cu",
         replaces="halo2_tpu/ops/ntt_pallas2.py:219",
         ms=first["ms"], device_ms=first["device_ms"], plain_ms=first["plain_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
-        shape=f"B=1 f={first['f']} g={first['g']} (first level of 2^16)",
-        levels=[{k: r[k] for k in ("log_n", "level", "f", "g", "ms", "device_ms", "bound_ms", "bound_by")}
+        shape=f"B=1 f={first['f']} g={first['g']} (first level of 2^16, Fp)",
+        bn254={k: first_bn[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        levels=[{k: r[k] for k in ("field", "log_n", "level", "f", "g", "ms", "device_ms", "bound_ms",
+                                   "bound_by")}
                 for r in cg_levels],
     )
     emit({"phase": "ntt_done", "seconds": time.perf_counter() - t0})
@@ -573,54 +643,66 @@ def main() -> int:
     cc = CurveCtx(Vesta)
     pctx = cc.fctx
 
-    for n, M, bases_pts in (
-        ((1 << 14) + 1, 3, params14.g + [params14.w]),
-        (1 << 15, 2, params14.g + params14.g_lagrange),
+    # BN254's G1 bases for the generic form of kernels 2-7: (i + 1) G in
+    # affine form, made by a host addition chain (no params file needed)
+    t1 = time.perf_counter()
+    bn_chain = chain_points(Bn254G1, (1 << 16) + 1)
+    emit({"phase": "bn254_bases", "n": len(bn_chain), "seconds": time.perf_counter() - t1})
+
+    # Vesta at the IPA k = 14 commit shape (c = 4) and at c = 8, then BN254's
+    # G1 at the KZG k = 14 commit shape (no blind row: n = 2^14)
+    for bcurve, n, M, bases_pts in (
+        (Vesta, (1 << 14) + 1, 3, params14.g + [params14.w]),
+        (Vesta, 1 << 15, 2, params14.g + params14.g_lagrange),
+        (Bn254G1, 1 << 14, 3, bn_chain[: 1 << 14]),
     ):
+        bcc = CurveCtx(bcurve)
+        bctx = bcc.fctx
+        bq = bcurve.SCALAR.MODULUS
         t1 = time.perf_counter()
-        bases = MSMBases(Vesta, bases_pts, dev)
-        c, nwin, T, n_pad = msm_bucket.msm_geometry(Vesta, n, dev)
-        canon = rand_canon((M, n))
+        bases = MSMBases(bcurve, bases_pts, dev)
+        c, nwin, T, n_pad = msm_bucket.msm_geometry(bcurve, n, dev)
+        canon = rand_canon((M, n)) if bcurve is Vesta else rand_below((M, n), bq)
         canon[0, :3] = 0  # zero scalars
         canon[0, 3] = torch.as_tensor(  # q - 1
-            np.frombuffer((q - 1).to_bytes(32, "little"), dtype="<u2").astype(np.int32), device=dev)
+            np.frombuffer((bq - 1).to_bytes(32, "little"), dtype="<u2").astype(np.int32), device=dev)
         scal_t = torch.nn.functional.pad(canon.transpose(1, 2), (0, n_pad - n)).contiguous()
         db = bases.device_tables(n_pad, dev)
-        bk = msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, cc)
-        bp = msm_bucket.msm_accum_plain(scal_t, db.px, db.py, c, nwin, T, cc)
-        same("msm_accum", bk, bp, pctx, f"msm_accum n={n}: kernel != plain")
-        fk = msm_bucket.msm_fold(bk, cc)
-        fp = msm_bucket.msm_fold_plain(bk, cc)
-        same("msm_fold", fk, fp, pctx, f"msm_fold n={n}: kernel != plain")
-        rk = msm_bucket.msm_lane_reduce(fk, cc)
-        rp = msm_bucket.msm_lane_reduce_plain(fk, cc)
-        require(torch.equal(rk, rp), f"msm_lane_reduce n={n}: kernel != plain (limbs)")
-        same("msm_lane_reduce", rk, rp, pctx, f"msm_lane_reduce n={n}: kernel != plain")
+        bk = msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, bcc)
+        bp, bp_ms = once_ms(lambda: msm_bucket.msm_accum_plain(scal_t, db.px, db.py, c, nwin, T, bcc))
+        same("msm_accum", bk, bp, bctx, f"msm_accum {bcurve.__name__} n={n}: kernel != plain")
+        fk = msm_bucket.msm_fold(bk, bcc)
+        fp, fp_ms = once_ms(lambda: msm_bucket.msm_fold_plain(bk, bcc))
+        same("msm_fold", fk, fp, bctx, f"msm_fold {bcurve.__name__} n={n}: kernel != plain")
+        rk = msm_bucket.msm_lane_reduce(fk, bcc)
+        rp, rp_ms = once_ms(lambda: msm_bucket.msm_lane_reduce_plain(fk, bcc))
+        require(torch.equal(rk, rp), f"msm_lane_reduce {bcurve.__name__} n={n}: kernel != plain (limbs)")
+        same("msm_lane_reduce", rk, rp, bctx, f"msm_lane_reduce {bcurve.__name__} n={n}: kernel != plain")
         # kernel 4 on edge parts: the identity in lanes 1 and T/2 + 3, lanes 0
         # and T/2 equal (P + P, the doubling case of the complete addition),
         # lane T/2 + 2 the negative of lane 2 (P + (-P)), and a row whose
         # lanes are all the identity
         ep = fk.clone()
-        idv = cc.identity_vec((1,), dev)
+        idv = bcc.identity_vec((1,), dev)
         ident = torch.stack([idv.x[0], idv.y[0], idv.z[0]])  # (3, 16)
         h = T // 2
         ep[:, :, :, 1] = ident
         ep[:, :, :, h + 3] = ident
         ep[:, :, :, h] = ep[:, :, :, 0]
-        ep[:, 1, :, h + 2] = pctx.neg(ep[:, 1, :, 2])
+        ep[:, 1, :, h + 2] = bctx.neg(ep[:, 1, :, 2])
         ep[-1] = ident[:, :, None]
-        ek = msm_bucket.msm_lane_reduce(ep, cc)
-        ekp = msm_bucket.msm_lane_reduce_plain(ep, cc)
-        require(torch.equal(ek, ekp), f"msm_lane_reduce n={n} edge parts: kernel != plain (limbs)")
-        same("msm_lane_reduce", ek, ekp, pctx, f"msm_lane_reduce n={n} edge parts: kernel != plain")
-        require(cc.decode_points(PointVec(ek[-1:, 0], ek[-1:, 1], ek[-1:, 2]))[0].is_identity(),
+        ek = msm_bucket.msm_lane_reduce(ep, bcc)
+        ekp = msm_bucket.msm_lane_reduce_plain(ep, bcc)
+        require(torch.equal(ek, ekp), f"msm_lane_reduce {bcurve.__name__} n={n} edge parts: kernel != plain (limbs)")
+        same("msm_lane_reduce", ek, ekp, bctx, f"msm_lane_reduce {bcurve.__name__} n={n} edge parts: kernel != plain")
+        require(bcc.decode_points(PointVec(ek[-1:, 0], ek[-1:, 1], ek[-1:, 2]))[0].is_identity(),
                 "msm_lane_reduce: a row of identities did not sum to the identity")
         pts = msm_bucket.msm_bucket_many(canon, bases, mont=False)
         t2 = time.perf_counter()
         ints = limbs_to_ints(canon[0].cpu())
-        require(pts[0] == msm_host(ints, bases_pts[:n], Vesta), f"MSM n={n} != msm_host")
-        emit({"phase": "msm", "n": n, "M": M, "c": c, "nwin": nwin, "T": T, "exact": True,
-              "host_checked": True, "msm_host_s": time.perf_counter() - t2,
+        require(pts[0] == msm_host(ints, bases_pts[:n], bcurve), f"MSM {bcurve.__name__} n={n} != msm_host")
+        emit({"phase": "msm", "curve": bcurve.__name__, "n": n, "M": M, "c": c, "nwin": nwin, "T": T,
+              "exact": True, "host_checked": True, "msm_host_s": time.perf_counter() - t2,
               "seconds": time.perf_counter() - t1})
         rows, B = M * nwin, 1 << c
         d = torch.stack([(scal_t[:, (w * c) >> 4] >> ((w * c) & 15)) & (B - 1)
@@ -637,45 +719,47 @@ def main() -> int:
         # highest occupied bucket down; the first of each is a copy
         top = (occ * torch.arange(1, B, device=dev)).amax(-1)
         fold_adds = int((occ.sum(-1) - 1).clamp(min=0).sum() + (top - 1).clamp(min=0).sum())
-        mul = mont_mul_instrs(pctx.p_int)
-        emit({"phase": "msm_work", "n": n, "M": M, "c": c, "nonzero_digits": int(nz.sum()),
-              "accum_adds": accum_adds, "fold_adds": fold_adds,
+        mul = mont_mul_instrs(bctx.p_int)
+        emit({"phase": "msm_work", "curve": bcurve.__name__, "n": n, "M": M, "c": c,
+              "nonzero_digits": int(nz.sum()), "accum_adds": accum_adds, "fold_adds": fold_adds,
               "bucket_occupancy": float(occ.float().mean()),
               "mont_mul_instrs": mul})
         timings = {
             "msm_accum": (
-                lambda: msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, cc),
-                lambda: msm_bucket.msm_accum_plain(scal_t, db.px, db.py, c, nwin, T, cc),
+                lambda: msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, bcc),
+                bp_ms,
                 4 * (scal_t.numel() + db.px.numel() + db.py.numel() + bk.numel()),
                 mul * MIXED_ADD_PRODUCTS * accum_adds,
                 "halo2_tpu/ops/msm_pallas.py:232",
             ),
             "msm_fold": (
-                lambda: msm_bucket.msm_fold(bk, cc),
-                lambda: msm_bucket.msm_fold_plain(bk, cc),
+                lambda: msm_bucket.msm_fold(bk, bcc),
+                fp_ms,
                 4 * (bk.numel() + fk.numel()),
                 mul * FULL_ADD_PRODUCTS * fold_adds,
                 "halo2_tpu/ops/msm_pallas.py:302",
             ),
             "msm_lane_reduce": (
-                lambda: msm_bucket.msm_lane_reduce(fk, cc),
-                lambda: msm_bucket.msm_lane_reduce_plain(fk, cc),
+                lambda: msm_bucket.msm_lane_reduce(fk, bcc),
+                rp_ms,
                 4 * (fk.numel() + rk.numel()),
                 mul * FULL_ADD_PRODUCTS * (T - 1) * rows,
                 "halo2_tpu/ops/msm_pallas.py:357",
             ),
         }
         # the k = 14 commit shape (c = 4) is each kernel's row; c = 8 rides along
-        for name, (kfn, pfn, nbytes, muls, replaces) in timings.items():
+        for name, (kfn, plain_ms, nbytes, muls, replaces) in timings.items():
             b_ms, b_by = bound(nbytes, muls)
-            row = dict(ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=time_ms(pfn, 1),
+            row = dict(ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, shape=f"M={M} n={n} c={c} T={T}")
-            if c == 4:
+            if bcurve is Bn254G1:
+                report[name]["bn254"] = row
+            elif c == 4:
                 report[name] = dict(route="cuda", source="halo2_tpu_torch/csrc/msm_bucket.cu",
                                     replaces=replaces, library_ms=None, **row)
             else:
                 report[name]["at_c8"] = row
-            emit({"phase": "time", "kernel": name, "c": c, **row})
+            emit({"phase": "time", "kernel": name, "curve": bcurve.__name__, "c": c, **row})
 
     # ---- golden proofs on the card ----
     golden = json.load(open(os.path.join(ROOT, "tests", "fixtures_golden.json")))
@@ -752,10 +836,10 @@ def main() -> int:
     # ---- device time of one warm proof: the four kernels by CUDA events,
     # every kernel on the card by torch.profiler ----
     event_log = []
-    wrapped = [(ntt_cg, "cg_ntt_level"), (msm_bucket, "msm_accum"), (msm_bucket, "msm_fold"),
-               (msm_bucket, "msm_lane_reduce")]
-    originals = {name: getattr(mod, name) for mod, name in wrapped}
-    for mod, name in wrapped:
+    wrapped_k14 = [(ntt_cg, "cg_ntt_level"), (msm_bucket, "msm_accum"), (msm_bucket, "msm_fold"),
+                   (msm_bucket, "msm_lane_reduce")]
+    originals = {name: getattr(mod, name) for mod, name in wrapped_k14}
+    for mod, name in wrapped_k14:
         setattr(mod, name, timed(name, originals[name], event_log))
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -765,7 +849,7 @@ def main() -> int:
             torch.cuda.synchronize()
             profiled_s = time.perf_counter() - t0
     finally:
-        for mod, name in wrapped:
+        for mod, name in wrapped_k14:
             setattr(mod, name, originals[name])
     require(tr.finalize() == proof, "profiled k=14 proof bytes differ from the first")
     proof_ms = {name: 0.0 for name in originals}
@@ -847,6 +931,124 @@ def main() -> int:
             sha = hashlib.sha256(tr.finalize()).hexdigest()
         require(sha == BENCH_K10_PROOF_SHA256, f"k=10 NTT={engine} proof sha256 {sha}")
         emit({"phase": "golden_k10", "ntt": engine, "exact": True, "seconds": time.perf_counter() - t0})
+
+    # ---- the KZG path: BenchCircuit over BN254's scalar field at k = 14 ----
+    k = 14
+    zero_launches()
+    t0 = time.perf_counter()
+    params_kzg = ParamsKZG.cached(k, device=dev)
+    t1 = time.perf_counter()
+    circ = bench_circuit_for_k(k, field=FrBn)
+    vk = keygen_vk(params_kzg, circ.without_witnesses())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pk = keygen_pk(params_kzg, vk, circ.without_witnesses())
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    reset_records()
+    tr = Blake2bWrite(Bn254G1)
+    create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)  # SHPLONK
+    proof_kzg = tr.finalize()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    kzg_spans = get_records()
+    reset_records()
+    ok = verify_proof(params_kzg, vk, [[]], Blake2bRead(Bn254G1, proof_kzg))
+    t5 = time.perf_counter()
+    kzg_verify_spans = get_records()
+    launches_kzg = read_launches()
+    require(ok is True, "KZG k=14 verify")
+    sha_kzg = hashlib.sha256(proof_kzg).hexdigest()
+    require(sha_kzg == BENCH_KZG_K14_PROOF_SHA256,
+            f"KZG k=14 proof sha256 {sha_kzg} != {BENCH_KZG_K14_PROOF_SHA256}")
+    bad = bytearray(proof_kzg)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = verify_proof(params_kzg, vk, [[]], Blake2bRead(Bn254G1, bytes(bad))) is not True
+    except (OpeningError, TranscriptError):
+        rejected = True
+    require(rejected, "KZG k=14 proof with a flipped byte was accepted")
+    for name in k14_kernels:
+        require(launches_kzg[name] > 0, f"kernel {name} was not launched on the KZG k=14 path")
+    require(launches_kzg["mr_col_ntt"] == 0, "kernel 8 ran on the default (NTT unset) KZG k=14 path")
+    kzg_stages = dict(params_read_s=t1 - t0, keygen_vk_s=t2 - t1, keygen_pk_s=t3 - t2,
+                      keygen_s=t3 - t1, prove_s=t4 - t3, verify_s=t5 - t4)
+    emit({"phase": "main_path_kzg14", "circuit": "BenchCircuit(FrBn)", "k": k, "multiopen": "shplonk",
+          "rows": circ.rows, "proof_bytes": len(proof_kzg), "pinned_sha256": True, "verified": True,
+          "flipped_byte_rejected": True, "stages": kzg_stages, "prove_spans": kzg_spans,
+          "verify_spans": kzg_verify_spans, "launches": launches_kzg})
+
+    # the same proof again, warm: the same bytes; its launches are one proof's
+    zero_launches()
+    reset_records()
+    t0 = time.perf_counter()
+    tr = Blake2bWrite(Bn254G1)
+    create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+    require(tr.finalize() == proof_kzg, "warm KZG k=14 proof bytes differ from the first")
+    torch.cuda.synchronize()
+    kzg_warm_s = time.perf_counter() - t0
+    emit({"phase": "warm_kzg14", "prove_s": kzg_warm_s, "prove_spans": get_records(),
+          "launches": read_launches()})
+
+    # device time of one warm KZG proof: kernels 1-4 by CUDA events, every
+    # kernel on the card by torch.profiler
+    event_log = []
+    originals = {name: getattr(mod, name) for mod, name in wrapped_k14}
+    for mod, name in wrapped_k14:
+        setattr(mod, name, timed(name, originals[name], event_log))
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr = Blake2bWrite(Bn254G1)
+            create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+    finally:
+        for mod, name in wrapped_k14:
+            setattr(mod, name, originals[name])
+    require(tr.finalize() == proof_kzg, "profiled KZG k=14 proof bytes differ from the first")
+    kzg_proof_ms = {name: 0.0 for name in originals}
+    for name, start, end in event_log:
+        kzg_proof_ms[name] += start.elapsed_time(end)
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
+    emit({"phase": "device_time_kzg14", "profiled_prove_s": profiled_s,
+          "device_events": len(dev_events), "device_busy_ms": busy_ms,
+          "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / kzg_warm_s,
+          "kernels_event_ms": kzg_proof_ms,
+          "kernels_traced_ms": {name: sum(e.time_range.elapsed_us() for e in dev_events
+                                          if sym in e.name) / 1e3
+                                for name, sym in kernel_symbol.items()}})
+
+    # one GWC proof with the Keccak256 transcript: proves and verifies
+    reset_records()
+    t0 = time.perf_counter()
+    tr = Keccak256Write(Bn254G1)
+    create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr, multiopen="gwc")
+    proof_gwc = tr.finalize()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gwc_spans = get_records()
+    ok = verify_proof(params_kzg, vk, [[]], Keccak256Read(Bn254G1, proof_gwc), multiopen="gwc")
+    t2 = time.perf_counter()
+    require(ok is True, "KZG k=14 GWC/Keccak256 verify")
+    emit({"phase": "kzg14_gwc_keccak", "verified": True, "proof_bytes": len(proof_gwc),
+          "proof_sha256": hashlib.sha256(proof_gwc).hexdigest(), "prove_s": t1 - t0,
+          "verify_s": t2 - t1, "prove_spans": gwc_spans})
+
+    # ---- the KZG path at k = 10: the JAX package's proof bytes ----
+    t0 = time.perf_counter()
+    params_kzg10 = ParamsKZG.cached(10, device=dev)
+    circ = bench_circuit_for_k(10, field=FrBn)
+    vk = keygen_vk(params_kzg10, circ.without_witnesses())
+    pk = keygen_pk(params_kzg10, vk, circ.without_witnesses())
+    tr = Blake2bWrite(Bn254G1)
+    create_proof(params_kzg10, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+    proof10 = tr.finalize()
+    sha = hashlib.sha256(proof10).hexdigest()
+    require(sha == BENCH_KZG_K10_PROOF_SHA256, f"KZG k=10 proof sha256 {sha} != {BENCH_KZG_K10_PROOF_SHA256}")
+    require(verify_proof(params_kzg10, vk, [[]], Blake2bRead(Bn254G1, proof10)) is True, "KZG k=10 verify")
+    emit({"phase": "golden_kzg10", "exact": True, "seconds": time.perf_counter() - t0})
 
     # ---- the k = 16 path: BenchCircuit through the sorted-bucket MSM ----
     k = 16
@@ -938,38 +1140,31 @@ def main() -> int:
           "bucket_launches_by_stage": {stage: {name: counts[name] for name in msm_bucket.LAUNCHES}
                                        for stage, counts in stage_launches.items()}})
 
-    # the same proof with the sorted MSM switched off: the same bytes; then
-    # once more with it on, so that both timed proofs are warm
-    def prove16():
-        reset_records()
-        t0 = time.perf_counter()
-        tr = Blake2bWrite(Vesta)
-        create_proof(params16, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
-        out = tr.finalize()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, get_records()
-
+    # the same proof with the sorted MSM switched off: the same bytes (a
+    # warm proof; the sorted one above was the first, so their times do not
+    # compare)
     zero_launches()
     saved = msm_mod.SORTED_MSM_MIN
     msm_mod.SORTED_MSM_MIN = 1 << 18
+    reset_records()
     try:
-        unsorted_proof, unsorted_s, unsorted_spans = prove16()
+        t0 = time.perf_counter()
+        tr = Blake2bWrite(Vesta)
+        create_proof(params16, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        unsorted_proof = tr.finalize()
+        torch.cuda.synchronize()
+        unsorted_s = time.perf_counter() - t0
     finally:
         msm_mod.SORTED_MSM_MIN = saved
     require(unsorted_proof == proof16, "k=16 proof bytes differ with the sorted MSM switched off")
     require(all(msm_sorted.LAUNCHES[name] == 0 for name in k16_kernels),
             "the sorted MSM ran while switched off")
-    unsorted_launches = read_launches()
-    zero_launches()
-    warm_proof, warm_s, warm_spans = prove16()
-    require(warm_proof == proof16, "warm k=16 proof bytes differ from the first")
     msm_span = f"msm n={(1 << k) + 1}"
     emit({"phase": "k16_unsorted_same_bytes", "exact": True,
-          "prove_s": {"sorted_first": t6 - t5, "unsorted_warm": unsorted_s, "sorted_warm": warm_s},
+          "prove_s": {"sorted_first": t6 - t5, "unsorted_warm": unsorted_s},
           "msm_span_s": {"sorted_first": prove_spans16.get(msm_span),
-                         "unsorted_warm": unsorted_spans.get(msm_span),
-                         "sorted_warm": warm_spans.get(msm_span)},
-          "launches": {"unsorted_warm": unsorted_launches, "sorted_warm": read_launches()}})
+                         "unsorted_warm": get_records().get(msm_span)},
+          "launches": {"unsorted_warm": read_launches()}})
 
     # the k = 16 params: commit_lagrange(v) = commit(intt(v)), both sorted
     zero_launches()
@@ -985,67 +1180,139 @@ def main() -> int:
             f"k=16 params check did not take the sorted MSM: {read_routes()}")
     emit({"phase": "params_k16", "lagrange_equals_monomial": True, "routes": read_routes()})
 
-    # ---- kernels 5-7: sorted MSM at n = 2^16 + 1 on the k = 16 bases ----
-    t0 = time.perf_counter()
+    # ---- kernels 5-7: sorted MSM at n = 2^16 + 1 on the k = 16 bases (Vesta)
+    # and on BN254's G1 (the generic form, bases from the host chain) ----
+    def sorted_kernels(curve, bases, canon):
+        """Kernels 5-7 on `curve` against their plain versions (kernel 7 bit
+        for bit, also on edge windows), the sorted MSM against msm_host and
+        the bucket MSM; each kernel timed, its bound counted from the digits.
+        Returns the report rows and what the caller's further checks use."""
+        scc = CurveCtx(curve)
+        sctx_b = scc.fctx
+        r = curve.SCALAR.MODULUS
+        tag = curve.__name__
+        n = canon.shape[0]
+        t0 = time.perf_counter()
+        px, py = bases.device_rows(dev)
+        classes = msm_sorted._cap_classes(n, msm_sorted.LANES, msm_sorted.KB, r)
+        entries, gstart, overflow = msm_sorted.prestage(canon, 16, classes)
+        require(not bool(overflow), f"random scalars overflowed the sorted MSM ({tag})")
+        bk = msm_sorted.msm_sorted_accum(entries, gstart, px, py, scc)
+        bp, bp_ms = once_ms(lambda: msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, scc))
+        same("msm_sorted_accum", bk, bp, sctx_b, f"msm_sorted_accum {tag}: kernel != plain")
+        wk = msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, scc)
+        wp, wp_ms = once_ms(lambda: msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, scc))
+        same("msm_sorted_fold", wk, wp, sctx_b, f"msm_sorted_fold {tag}: kernel != plain")
+        hk = msm_sorted.msm_sorted_horner(wk, scc)
+        hp, hp_ms = once_ms(lambda: msm_sorted.msm_sorted_horner_plain(wk, scc))
+        require(torch.equal(hk, hp), f"msm_sorted_horner {tag}: kernel != plain (limbs)")
+        same("msm_sorted_horner", hk, hp, sctx_b, f"msm_sorted_horner {tag}: kernel != plain")
+        # kernel 7 on edge windows: identity windows (the top one, a run, the
+        # bottom; one with Z = p), all identity, equal windows (2^16 W_15 meets
+        # W_14 = 2^16 W_15: P + P inside the addition) and opposite ones (it meets
+        # -(2^16 W_15)); projective, each point scaled by its own lambda
+        gen = curve.generator()
+        base_pts = [gen.mul(int(rng.integers(1, 1 << 62))) for _ in range(16)]
+        ident = curve.identity()
+        cases = {"identity_windows": [ident if w in (15, 14, 9, 8, 7, 0) else pt
+                                      for w, pt in enumerate(base_pts)],
+                 "all_identity": [ident] * 16,
+                 "equal_windows": base_pts[:14] + [base_pts[15].mul(1 << 16), base_pts[15]],
+                 "opposite_windows": base_pts[:14] + [-base_pts[15].mul(1 << 16), base_pts[15]]}
+        edge_wins = []
+        for case, pts in cases.items():
+            pv = scc.encode_points(pts, dev)
+            lam = sctx_b.consts([int(rng.integers(2, 1 << 62)) for _ in range(16)], dev)
+            ew = torch.stack([sctx_b.mul(t, lam) for t in pv], dim=1).contiguous()
+            if case == "identity_windows":
+                ew[9, 2] = torch.as_tensor(ints_to_limbs([curve.p()])[0], device=dev)
+            want = ident
+            for pt in reversed(pts):
+                want = want.mul(1 << 16) + pt
+            ek = msm_sorted.msm_sorted_horner(ew, scc)
+            require(scc.decode_points(PointVec(ek[None, 0], ek[None, 1], ek[None, 2]))[0] == want,
+                    f"msm_sorted_horner {tag} {case}: != sum_w 2^(16 w) W_w on the host")
+            edge_wins.append((case, ew, ek))
+        # the plain version takes the four cases as one batch of independent chains
+        ep = msm_sorted.msm_sorted_horner_plain(torch.stack([ew for _, ew, _ in edge_wins], 1), scc)
+        for i, (case, _, ek) in enumerate(edge_wins):
+            require(torch.equal(ek, ep[i]), f"msm_sorted_horner {tag} {case}: kernel != plain (limbs)")
+            same("msm_sorted_horner", ek, ep[i], sctx_b, f"msm_sorted_horner {tag} {case}: kernel != plain")
+        got = msm_sorted.msm_sorted(canon, bases)
+        t1 = time.perf_counter()
+        want = msm_host(limbs_to_ints(canon.cpu()), bases.host_points[:n], curve)
+        host_s = time.perf_counter() - t1
+        require(got == want, f"sorted MSM {tag} n={n} != msm_host")
+        require(got == msm_bucket.msm_bucket_many(canon[None], bases, mont=False)[0],
+                f"sorted MSM {tag} n={n} != bucket MSM")
+        gcnt = (gstart[:, 1:] - gstart[:, :-1]).long()
+        # The work sum_w 2^(16 w) sum_b b * S_b needs on this data, counted from
+        # the digits: a point into an empty bucket is a copy, each later one a
+        # mixed addition; the side list (|e| = 2^15) is bucket 2^15; per window a
+        # running sum from the highest occupied bucket down, run += S_b over the
+        # occupied buckets and total += run at every bucket below the top, the
+        # first of each a copy; then Horner's 16 doublings and one addition per
+        # window below the top.
+        nb = 1 << msm_sorted.BUCKET_BITS
+        digits = msm_sorted._recode_signed(canon, 16).abs().long()
+        per_bucket = torch.zeros((16, nb + 1), dtype=torch.long, device=dev)
+        per_bucket.scatter_add_(1, digits, torch.ones_like(digits))
+        occ = per_bucket[:, 1:] > 0  # buckets 1 .. 2^15
+        accum_mixed = int(per_bucket[:, 1:nb].sum() - occ[:, : nb - 1].sum())
+        side_mixed = int((per_bucket[:, nb] - 1).clamp(min=0).sum())
+        top = (occ * torch.arange(1, nb + 1, device=dev)).amax(-1)
+        fold_adds = int(((occ.sum(-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum())
+        horner_adds, horner_dbls = 15, 15 * 16
+        mul = mont_mul_instrs(sctx_b.p_int)
+        work = {
+            "msm_sorted_accum": mul * MIXED_ADD_PRODUCTS * accum_mixed,
+            "msm_sorted_fold": mul * (MIXED_ADD_PRODUCTS * side_mixed + FULL_ADD_PRODUCTS * fold_adds),
+            "msm_sorted_horner": mul * (FULL_ADD_PRODUCTS * horner_adds + DOUBLE_PRODUCTS * horner_dbls),
+        }
+        emit({"phase": "msm_sorted", "curve": tag, "n": n, "exact": True, "host_checked": True,
+              "msm_host_s": host_s, "nonzero_digits": int(gcnt.sum()),
+              "side_points": int(gcnt[:, msm_sorted.LANES].sum()),
+              "max_lane": int(gcnt[:, : msm_sorted.LANES].max()), "caps": classes,
+              "occupied_buckets": int(occ.sum()), "accum_mixed_adds": accum_mixed,
+              "fold_side_mixed_adds": side_mixed, "fold_adds": fold_adds,
+              "horner_adds": horner_adds, "horner_doublings": horner_dbls, "mont_mul_instrs": mul,
+              "seconds": time.perf_counter() - t0})
+        inputs = 4 * (entries.numel() + gstart.numel() + 2 * n * 16)
+        timings = {
+            "msm_sorted_accum": (
+                lambda: msm_sorted.msm_sorted_accum(entries, gstart, px, py, scc),
+                bp_ms,
+                inputs + 4 * bk.numel(), "halo2_tpu/ops/msm_sorted.py:275"),
+            "msm_sorted_fold": (
+                lambda: msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, scc),
+                wp_ms,
+                4 * (bk.numel() + wk.numel() + gstart.numel()
+                     + 32 * int(gcnt[:, msm_sorted.LANES].sum())),
+                "halo2_tpu/ops/msm_sorted.py:433"),
+            "msm_sorted_horner": (
+                lambda: msm_sorted.msm_sorted_horner(wk, scc),
+                hp_ms,
+                4 * (wk.numel() + hk.numel()), "halo2_tpu/ops/msm_sorted.py:497"),
+        }
+        rows = {}
+        for name, (kfn, plain_ms, nbytes, replaces) in timings.items():
+            b_ms, b_by = bound(nbytes, work[name])
+            rows[name] = dict(
+                route="cuda", source="halo2_tpu_torch/csrc/msm_sorted.cu", replaces=replaces,
+                ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"n={n} nw=16 W={msm_sorted.LANES} KB={msm_sorted.KB} ({tag})",
+            )
+            emit({"phase": "time", "kernel": name, "curve": tag, **rows[name]})
+        return rows, classes, px, py
+
     n = n16 + 1
     bases = params16._bases_g  # g ++ [w]
     canon = rand_canon((n,))
     edge = [0, 1, q - 1, 1 << 15, ((1 << 15) << 48) % q, (1 << 16) - 1]
-    canon[: len(edge)] = torch.as_tensor(
-        np.frombuffer(b"".join(v.to_bytes(32, "little") for v in edge), dtype="<u2")
-        .reshape(len(edge), 16).astype(np.int32), device=dev)
-    px, py = bases.device_rows(dev)
-    classes = msm_sorted._cap_classes(n, msm_sorted.LANES, msm_sorted.KB, q)
-    entries, gstart, overflow = msm_sorted.prestage(canon, 16, classes)
-    require(not bool(overflow), "random scalars overflowed the sorted MSM")
-    bk = msm_sorted.msm_sorted_accum(entries, gstart, px, py, cc)
-    bp = msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, cc)
-    same("msm_sorted_accum", bk, bp, pctx, "msm_sorted_accum: kernel != plain")
-    wk = msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, cc)
-    wp = msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, cc)
-    same("msm_sorted_fold", wk, wp, pctx, "msm_sorted_fold: kernel != plain")
-    hk = msm_sorted.msm_sorted_horner(wk, cc)
-    hp = msm_sorted.msm_sorted_horner_plain(wk, cc)
-    require(torch.equal(hk, hp), "msm_sorted_horner: kernel != plain (limbs)")
-    same("msm_sorted_horner", hk, hp, pctx, "msm_sorted_horner: kernel != plain")
-    # kernel 7 on edge windows: identity windows (the top one, a run, the
-    # bottom; one with Z = p), all identity, equal windows (2^16 W_15 meets
-    # W_14 = 2^16 W_15: P + P inside the addition) and opposite ones (it meets
-    # -(2^16 W_15)); projective, each point scaled by its own lambda
-    gen = Vesta.generator()
-    base_pts = [gen.mul(int(rng.integers(1, 1 << 62))) for _ in range(16)]
-    ident = Vesta.identity()
-    cases = {"identity_windows": [ident if w in (15, 14, 9, 8, 7, 0) else pt
-                                  for w, pt in enumerate(base_pts)],
-             "all_identity": [ident] * 16,
-             "equal_windows": base_pts[:14] + [base_pts[15].mul(1 << 16), base_pts[15]],
-             "opposite_windows": base_pts[:14] + [-base_pts[15].mul(1 << 16), base_pts[15]]}
-    edge_wins = []
-    for case, pts in cases.items():
-        pv = cc.encode_points(pts, dev)
-        lam = pctx.consts([int(rng.integers(2, 1 << 62)) for _ in range(16)], dev)
-        ew = torch.stack([pctx.mul(t, lam) for t in pv], dim=1).contiguous()
-        if case == "identity_windows":
-            ew[9, 2] = torch.as_tensor(ints_to_limbs([Vesta.p()])[0], device=dev)
-        want = ident
-        for pt in reversed(pts):
-            want = want.mul(1 << 16) + pt
-        ek = msm_sorted.msm_sorted_horner(ew, cc)
-        require(cc.decode_points(PointVec(ek[None, 0], ek[None, 1], ek[None, 2]))[0] == want,
-                f"msm_sorted_horner {case}: != sum_w 2^(16 w) W_w on the host")
-        edge_wins.append((case, ew, ek))
-    # the plain version takes the four cases as one batch of independent chains
-    ep = msm_sorted.msm_sorted_horner_plain(torch.stack([ew for _, ew, _ in edge_wins], 1), cc)
-    for i, (case, _, ek) in enumerate(edge_wins):
-        require(torch.equal(ek, ep[i]), f"msm_sorted_horner {case}: kernel != plain (limbs)")
-        same("msm_sorted_horner", ek, ep[i], pctx, f"msm_sorted_horner {case}: kernel != plain")
-    got = msm_sorted.msm_sorted(canon, bases)
-    t1 = time.perf_counter()
-    want = msm_host(limbs_to_ints(canon.cpu()), bases.host_points[:n], Vesta)
-    host_s = time.perf_counter() - t1
-    require(got == want, "sorted MSM n=2^16+1 != msm_host")
-    require(got == msm_bucket.msm_bucket_many(canon[None], bases, mont=False)[0],
-            "sorted MSM n=2^16+1 != bucket MSM")
+    canon[: len(edge)] = torch.as_tensor(ints_to_limbs(edge), device=dev)
+    sorted_rows, classes, px, py = sorted_kernels(Vesta, bases, canon)
+    report.update(sorted_rows)
     # scalars below 2^127 with zero rows: windows 8-15 empty (their buckets and
     # sums the identity), window 7's digits non-negative and spread over all
     # lanes (its limb below 2^15 - 1 carries nothing into window 8)
@@ -1066,37 +1333,6 @@ def main() -> int:
     require(msm_sorted.msm_sorted(low, bases)
             == msm_bucket.msm_bucket_many(low[None], bases, mont=False)[0],
             "sorted MSM of scalars below 2^127 != bucket MSM")
-    gcnt = (gstart[:, 1:] - gstart[:, :-1]).long()
-    # The work sum_w 2^(16 w) sum_b b * S_b needs on this data, counted from
-    # the digits: a point into an empty bucket is a copy, each later one a
-    # mixed addition; the side list (|e| = 2^15) is bucket 2^15; per window a
-    # running sum from the highest occupied bucket down, run += S_b over the
-    # occupied buckets and total += run at every bucket below the top, the
-    # first of each a copy; then Horner's 16 doublings and one addition per
-    # window below the top.
-    nb = 1 << msm_sorted.BUCKET_BITS
-    digits = msm_sorted._recode_signed(canon, 16).abs().long()
-    per_bucket = torch.zeros((16, nb + 1), dtype=torch.long, device=dev)
-    per_bucket.scatter_add_(1, digits, torch.ones_like(digits))
-    occ = per_bucket[:, 1:] > 0  # buckets 1 .. 2^15
-    accum_mixed = int(per_bucket[:, 1:nb].sum() - occ[:, : nb - 1].sum())
-    side_mixed = int((per_bucket[:, nb] - 1).clamp(min=0).sum())
-    top = (occ * torch.arange(1, nb + 1, device=dev)).amax(-1)
-    fold_adds = int(((occ.sum(-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum())
-    horner_adds, horner_dbls = 15, 15 * 16
-    mul = mont_mul_instrs(pctx.p_int)
-    work = {
-        "msm_sorted_accum": mul * MIXED_ADD_PRODUCTS * accum_mixed,
-        "msm_sorted_fold": mul * (MIXED_ADD_PRODUCTS * side_mixed + FULL_ADD_PRODUCTS * fold_adds),
-        "msm_sorted_horner": mul * (FULL_ADD_PRODUCTS * horner_adds + DOUBLE_PRODUCTS * horner_dbls),
-    }
-    emit({"phase": "msm_sorted", "n": n, "exact": True, "host_checked": True, "msm_host_s": host_s,
-          "nonzero_digits": int(gcnt.sum()), "side_points": int(gcnt[:, msm_sorted.LANES].sum()),
-          "max_lane": int(gcnt[:, : msm_sorted.LANES].max()), "caps": classes,
-          "occupied_buckets": int(occ.sum()), "accum_mixed_adds": accum_mixed,
-          "fold_side_mixed_adds": side_mixed, "fold_adds": fold_adds,
-          "horner_adds": horner_adds, "horner_doublings": horner_dbls,
-          "seconds": time.perf_counter() - t0})
 
     # the two routes of msm() for one MSM of 2^16 + 1 points, on the same
     # scalars and bases, each ending in its host readback
@@ -1108,31 +1344,16 @@ def main() -> int:
     emit({"phase": "msm_routes", "n": n, "ms": route_ms,
           "bucket_geometry": msm_bucket.msm_geometry(Vesta, n, dev)[:3]})
 
-    inputs = 4 * (entries.numel() + gstart.numel() + 2 * n * 16)
-    timings = {
-        "msm_sorted_accum": (
-            lambda: msm_sorted.msm_sorted_accum(entries, gstart, px, py, cc),
-            lambda: msm_sorted.msm_sorted_accum_plain(entries, gstart, px, py, cc),
-            inputs + 4 * bk.numel(), "halo2_tpu/ops/msm_sorted.py:275"),
-        "msm_sorted_fold": (
-            lambda: msm_sorted.msm_sorted_fold(bk, entries, gstart, px, py, cc),
-            lambda: msm_sorted.msm_sorted_fold_plain(bk, entries, gstart, px, py, cc),
-            4 * (bk.numel() + wk.numel() + gstart.numel() + 32 * int(gcnt[:, msm_sorted.LANES].sum())),
-            "halo2_tpu/ops/msm_sorted.py:433"),
-        "msm_sorted_horner": (
-            lambda: msm_sorted.msm_sorted_horner(wk, cc),
-            lambda: msm_sorted.msm_sorted_horner_plain(wk, cc),
-            4 * (wk.numel() + hk.numel()), "halo2_tpu/ops/msm_sorted.py:497"),
-    }
-    for name, (kfn, pfn, nbytes, replaces) in timings.items():
-        b_ms, b_by = bound(nbytes, work[name])
-        report[name] = dict(
-            route="cuda", source="halo2_tpu_torch/csrc/msm_sorted.cu", replaces=replaces,
-            ms=time_ms(kfn), device_ms=device_ms(kfn, 5), plain_ms=time_ms(pfn, 1),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, shape=f"n={n} nw=16 W={msm_sorted.LANES} KB={msm_sorted.KB}",
-        )
-        emit({"phase": "time", "kernel": name, **report[name]})
+    # the same kernels in their generic form: BN254's G1 (3b = 9, FqBn), the
+    # host chain's 2^16 + 1 bases, scalars below r with edge scalars first
+    r_bn = FrBn.MODULUS
+    canon = rand_below((n,), r_bn)
+    edge = [0, 1, r_bn - 1, 1 << 15, ((1 << 15) << 48) % r_bn, (1 << 16) - 1]
+    canon[: len(edge)] = torch.as_tensor(ints_to_limbs(edge), device=dev)
+    bn_rows, _, _, _ = sorted_kernels(Bn254G1, MSMBases(Bn254G1, bn_chain, dev), canon)
+    for name, row in bn_rows.items():
+        report[name]["bn254"] = {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "shape")}
 
     # each kernel's main path: its launches there and its CUDA-event time in one proof
     paths = {name: ("k14", launches, proof_ms) for name in k14_kernels}
@@ -1152,9 +1373,14 @@ def main() -> int:
                         **({"at_c8": rec["at_c8"], "ms_per_k16_proof": bucket_proof_ms[name],
                             "launches_k16": launches16[name]} if "at_c8" in rec else {}),
                         **({"levels": rec["levels"], "launches_k16": launches16[name]}
-                           if "levels" in rec else {})})
+                           if "levels" in rec else {}),
+                        **({"bn254": rec["bn254"], "launches_kzg14": launches_kzg[name],
+                            "ms_per_warm_kzg14_proof": kzg_proof_ms.get(name)}
+                           if "bn254" in rec else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")
+    require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),
+            "kernels 1-7 each have a BN254 row")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,17 @@ c = constant * a^2 * b^2). `BenchCircuit` / `bench_circuit_for_k` are
 through the gate sm*(a*b) + sa*a + sb*b - sc*c = 0, a copy chain c[i] ->
 a[i+1], and a lookup of b into a 2^bits table. The synthesis is the same,
 written against `halo2_tpu_torch`'s front-end, so keys and proofs match the
-JAX package's byte for byte.
+JAX package's byte for byte. `BenchCircuit` takes the scalar field its
+witness chain is reduced in: Pasta's Fp, the default, keeps
+`examples/plonk_bench.py`'s bytes; BN254's FrBn makes the KZG workload.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Type
 
-from .fields import Fp
+from .fields import FieldElement, Fp
 from .frontend import Circuit, Layouter, Region, Value
 from .plonk import ConstraintSystem
 from .poly import Rotation
@@ -101,15 +104,18 @@ class BenchConfig:
 
 
 class BenchCircuit(Circuit):
-    """`rows` active gate rows; `seed` drives the witness chain."""
+    """`rows` active gate rows; `seed` drives the witness chain, reduced mod
+    the scalar field `field` (Pasta's Fp by default; BN254's FrBn for KZG)."""
 
-    def __init__(self, rows: int, table_bits: int = 8, seed: int = None):
+    def __init__(self, rows: int, table_bits: int = 8, seed: int = None,
+                 field: Type[FieldElement] = Fp):
         self.rows = rows
         self.table_bits = table_bits
         self.seed = seed
+        self.field = field
 
     def without_witnesses(self):
-        return BenchCircuit(self.rows, self.table_bits, None)
+        return BenchCircuit(self.rows, self.table_bits, None, self.field)
 
     @classmethod
     def configure(cls, meta: ConstraintSystem) -> BenchConfig:
@@ -144,7 +150,7 @@ class BenchCircuit(Circuit):
         return BenchConfig(a, b, c, sa, sb, sc, sm, sl)
 
     def synthesize(self, config: BenchConfig, layouter: Layouter):
-        P = Fp.MODULUS
+        P = self.field.MODULUS
         mask = (1 << self.table_bits) - 1
         rows = self.rows
         witness = self.seed is not None
@@ -190,8 +196,8 @@ class BenchCircuit(Circuit):
         layouter.assign_table("table", in_table)
 
 
-def bench_circuit_for_k(k: int, seed: int = 42):
+def bench_circuit_for_k(k: int, seed: int = 42, field: Type[FieldElement] = Fp):
     """Fill ~all usable rows of a 2^k domain (leave room for blinding +
     the lookup table tail)."""
     rows = (1 << k) - 64
-    return BenchCircuit(rows, table_bits=min(8, k - 1), seed=seed)
+    return BenchCircuit(rows, table_bits=min(8, k - 1), seed=seed, field=field)

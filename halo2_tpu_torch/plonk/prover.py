@@ -4,8 +4,8 @@ The strict Fiat-Shamir sequencing (commit -> squeeze -> commit) is preserved
 exactly; bulk math (NTT basis changes, extended-domain constraint folding)
 runs on the params' device, transcript hashing stays on the host.
 
-Counterpart of `halo2_tpu/plonk/prover.py` for the IPA scheme; the KZG
-branch of the JAX package is not ported and raises NotImplementedError.
+Counterpart of `halo2_tpu/plonk/prover.py`, for the IPA and the KZG
+schemes.
 """
 
 from __future__ import annotations
@@ -93,12 +93,17 @@ class WitnessCollection:
 def _dispatch_scheme(params, multiopen: Optional[str]):
     """(query_instance, prove_fn, verify_fn) for the params' scheme.
 
-    IPA commits instances (ipa/multiopen/prover.rs:25). The KZG scheme is
-    not ported."""
+    IPA commits instances (ipa/multiopen/prover.rs:25); KZG hashes them as
+    scalars (gwc/prover.rs:36, shplonk/prover.rs:112) and opens with
+    SHPLONK unless `multiopen` names GWC."""
     from ..poly.ipa import ParamsIPA, multiopen_prove, multiopen_verify
+    from ..poly.kzg import MULTIOPEN, ParamsKZG
 
     if isinstance(params, ParamsIPA):
         return True, multiopen_prove, multiopen_verify
+    if isinstance(params, ParamsKZG):
+        prove, verify = MULTIOPEN[multiopen or "shplonk"]
+        return False, prove, verify
     raise NotImplementedError(f"params type {type(params).__name__} is not ported")
 
 

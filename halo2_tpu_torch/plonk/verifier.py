@@ -350,7 +350,8 @@ def verify_proof(params, vk: VerifyingKey, instances: List[List[List[int]]], tra
     queries.extend(vanishing.verifier_queries(vanishing_evaluated, x))
 
     # ---- multiopen verification under strategy ----
-    guard = multiopen_verify_fn(params, transcript, queries, params.empty_msm())
+    msm = params.accumulator() if hasattr(params, "accumulator") else params.empty_msm()
+    guard = multiopen_verify_fn(params, transcript, queries, msm)
     if strategy == "single":
         final = guard.use_challenges()
         if not final.check():

@@ -42,6 +42,32 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def params_cache_path(name: str) -> Optional[str]:
+    """Where the params file `name` is cached: under $H2_PARAMS_CACHE, or
+    <repo>/.params_cache when it is unset; None when it is 0."""
+    cache_dir = os.environ.get("H2_PARAMS_CACHE", "")
+    if cache_dir == "0":
+        return None
+    if not cache_dir:
+        cache_dir = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))),
+            ".params_cache",
+        )
+    return os.path.join(cache_dir, name)
+
+
+def publish_file(path: str, data: bytes) -> None:
+    """Write `data` to `path` through a temporary name of this process's
+    own: two processes that write the same params never write into one
+    file, and each publishes a whole one."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 class ParamsIPA:
     def __init__(self, curve: Type[Curve], k: int, g: List[Point], g_lagrange: List[Point],
                  w: Point, u: Point, device):
@@ -77,16 +103,7 @@ class ParamsIPA:
         key = (curve.__name__, k, str(device))
         if key in cls._cache:
             return cls._cache[key]
-        cache_dir = os.environ.get("H2_PARAMS_CACHE", "")
-        path = None
-        if cache_dir != "0":
-            if not cache_dir:
-                cache_dir = os.path.join(
-                    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-                        os.path.abspath(__file__))))),
-                    ".params_cache",
-                )
-            path = os.path.join(cache_dir, f"ipa-{curve.__name__}-k{k}.raw")
+        path = params_cache_path(f"ipa-{curve.__name__}-k{k}.raw")
         if path is not None and os.path.exists(path):
             params = cls._read_raw(curve, path, device)
         else:
@@ -100,15 +117,8 @@ class ParamsIPA:
         return params
 
     def _write_raw(self, path: str) -> None:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        # a name of this process's own: two processes that write the same
-        # params never write into one file, and each publishes a whole one
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            f.write(self.k.to_bytes(4, "little"))
-            for pt in self.g + self.g_lagrange + [self.w, self.u]:
-                f.write(pt.to_bytes_uncompressed())
-        os.replace(tmp, path)
+        publish_file(path, self.k.to_bytes(4, "little") + b"".join(
+            pt.to_bytes_uncompressed() for pt in self.g + self.g_lagrange + [self.w, self.u]))
 
     @classmethod
     def _read_raw(cls, curve: Type[Curve], path: str, device) -> "ParamsIPA":
