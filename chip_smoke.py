@@ -16,7 +16,7 @@ kernel 1 over its scalar field FrBn at 2^14 and 2^16, kernels 2-4 on its G1
 (3b = 9) at the KZG commit shape M = 3, n = 2^14, c = 4, kernels 5-7 at
 n = 2^16 + 1, on bases (i + 1) G made by a host addition chain, each timed
 beside its Pasta-form row. The script reproduces the golden proof bytes of
-MulCircuit (k = 4), and drives five paths, each with the kernels' launch
+MulCircuit (k = 4), and drives these paths, each with the kernels' launch
 counters set to 0 just before it and read just after:
 
 * k = 14: IPA/Vesta params -> keygen_vk -> keygen_pk -> create_proof ->
@@ -24,15 +24,30 @@ counters set to 0 just before it and read just after:
   pinned bytes (BENCH_K14_PROOF_SHA256). It then proves the
   same circuit twice more, warm: once plain, once with the four kernels timed
   by CUDA events and every kernel on the card traced by torch.profiler, which
-  gives the device time of one proof; and reproduces the proof bytes of
-  BenchCircuit at k = 10.
+  gives the device time of one proof; then twice more on the same keys, under
+  EVAL_H=full (the plain full extended-domain fold) and under MSM=sorted
+  (every msm() call on the sorted MSM, kernels 5-7), both to the pinned
+  bytes; and reproduces the proof bytes of BenchCircuit at k = 10.
+* batch14: BatchVerifier over the pinned k = 14 proof and one made with
+  another rng: it accepts both, its one combined final MSM runs kernels 2-4,
+  and it returns False when one byte of the second proof is flipped.
+* mock14: MockProver on BenchCircuit at k = 14, its vectorised check on the
+  card (limb tensors, no kernel of csrc/): no failure; a copy of the witness
+  with one c cell changed reports the gate's failure at that row, rendered
+  as the row loop renders it.
+* poseidon11: gating config 2 of BASELINE.md, the Poseidon hash gadget at
+  k = 11 (HashCircuit([7, 11]), circuits.poseidon_k11): params -> keygen ->
+  a first and a warm proof -> verify, to the JAX package's bytes
+  (POSEIDON_K11_PROOF_SHA256); a flipped byte and a wrong digest fail to
+  verify. Kernels 1-4 run (the batched commits and the IPA rounds go to the
+  bucket MSM; single MSMs of 2^11 points stay on the host).
 * KZG at k = 14 (route `kzg14`): ParamsKZG (BN254) -> keygen_vk ->
   keygen_pk -> create_proof (SHPLONK, Blake2b) -> verify_proof (a pairing
   check on the host) for BenchCircuit over FrBn, which runs kernels 1-4 in
   their generic form; the proof has the pinned bytes
-  (BENCH_KZG_K14_PROOF_SHA256), verifies, rejects a flipped byte, and a warm
-  proof repeats them; a third proof is traced as at k = 14 above; one GWC
-  proof with the Keccak256 transcript proves and verifies. BenchCircuit over
+  (BENCH_KZG_K14_PROOF_SHA256), verifies and rejects a flipped byte; a warm
+  proof is traced as at k = 14 above and repeats the bytes; one GWC proof
+  with the Keccak256 transcript proves and verifies. BenchCircuit over
   FrBn at k = 10 then gives the JAX package's bytes
   (BENCH_KZG_K10_PROOF_SHA256).
 * k = 16: the same entry points for BenchCircuit at k = 16, where keygen's
@@ -42,7 +57,7 @@ counters set to 0 just before it and read just after:
   beside kernels 5-7; kernel 1's launches counted too). The proof has the
   pinned bytes (BENCH_K16_PROOF_SHA256)
   and verifies, a flipped byte is rejected, and the proof made again with the sorted MSM
-  switched off has the same bytes; commit_lagrange(v) =
+  switched off (MSM=pallas) has the same bytes; commit_lagrange(v) =
   commit(intt(v)) on the k = 16 params. Kernels 5-7 are then held against
   their plain versions and msm_host at n = 2^16 + 1, kernels 5 and 6 also on
   scalars below 2^127 with zero rows (windows 8-15 empty; that MSM against
@@ -118,6 +133,10 @@ BENCH_K16_PROOF_SHA256 = "5f9b3d057d85eada10660f86ab6c2899182c7e6bfeb5ac0c247277
 # (this script, before it was pinned).
 BENCH_KZG_K10_PROOF_SHA256 = "c4f216e517414c290a95e4bcedcce5e50788bd68f868b06aff0eadb6ecc377fa"
 BENCH_KZG_K14_PROOF_SHA256 = "caeb836fcc28301792ec18ed652290d83dc5599474940f2192df3f3caa98785a"
+# Gating config 2 (HashCircuit([7, 11]) at k = 11, ChaCha20Rng(b"\x02" * 32)):
+# the sha256 of the proof the JAX package makes on the CPU
+# (tests/test_torch_gadgets.py names the command).
+POSEIDON_K11_PROOF_SHA256 = "23e86128f8ff13e45491b2d503d84b2240e3946cc0c0239a9d6cd722b6a6ac25"
 
 # Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
 # work the assumed peak is 64 32-bit multiply instructions per clock per SM
@@ -266,6 +285,122 @@ def environ(**values):
                 os.environ[name] = v
 
 
+def poseidon_path(dev, read_launches):
+    """Gating config 2 through the entry points: ParamsIPA.cached(Vesta, 11)
+    -> keygen_vk -> keygen_pk -> create_proof (Blake2b; a first and a warm
+    proof) -> verify_proof for HashCircuit([7, 11]), whose one public input
+    is its Poseidon digest. The proof must have the JAX package's bytes,
+    verify, and fail to verify with a flipped byte or a wrong digest."""
+    from halo2_tpu_torch.circuits import poseidon_k11
+    from halo2_tpu_torch.curves import Vesta
+    from halo2_tpu_torch.fields import Fp
+    from halo2_tpu_torch.plonk.error import OpeningError
+    from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
+    from halo2_tpu_torch.plonk.prover import create_proof
+    from halo2_tpu_torch.plonk.verifier import verify_proof
+    from halo2_tpu_torch.poly.ipa import ParamsIPA
+    from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite, TranscriptError
+    from halo2_tpu_torch.utils.chacha import ChaCha20Rng
+    from halo2_tpu_torch.utils.measure import get_records, get_totals, reset_records
+
+    k, circ, instances, seed = poseidon_k11()
+    marks = {}
+    t0 = time.perf_counter()
+    params = ParamsIPA.cached(Vesta, k, device=dev)
+    t1 = time.perf_counter()
+    vk = keygen_vk(params, circ.without_witnesses())
+    pk = keygen_pk(params, vk, circ.without_witnesses())
+    sync(dev)
+    t2 = time.perf_counter()
+    marks["keygen"] = read_launches()
+    proofs, prove_s, spans = [], [], []
+    for _ in range(2):  # the first proof, then a warm one
+        reset_records()
+        t3 = time.perf_counter()
+        tr = Blake2bWrite(Vesta)
+        create_proof(params, pk, [circ], [instances], ChaCha20Rng(seed), tr)
+        proofs.append(tr.finalize())
+        sync(dev)
+        prove_s.append(time.perf_counter() - t3)
+        spans.append(get_records())
+        marks[f"prove_{len(proofs)}"] = read_launches()
+    totals = get_totals()
+    proof = proofs[0]
+    require(proofs[1] == proof, "poseidon11: the warm proof's bytes differ from the first")
+    t4 = time.perf_counter()
+    ok = verify_proof(params, vk, [instances], Blake2bRead(Vesta, proof))
+    t5 = time.perf_counter()
+    marks["verify"] = read_launches()
+    require(ok is True, "poseidon11: verify")
+    sha = hashlib.sha256(proof).hexdigest()
+    require(sha == POSEIDON_K11_PROOF_SHA256, f"poseidon11 proof sha256 {sha} != {POSEIDON_K11_PROOF_SHA256}")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    wrong = [[(instances[0][0] + 1) % Fp.MODULUS]]
+    for inst, data, what in ((instances, bytes(bad), "a flipped byte"), (wrong, proof, "a wrong digest")):
+        try:
+            rejected = verify_proof(params, vk, [inst], Blake2bRead(Vesta, data)) is not True
+        except (OpeningError, TranscriptError):
+            rejected = True
+        require(rejected, f"poseidon11: a proof with {what} was accepted")
+    by_stage, prev = {}, {}
+    for stage, counts in marks.items():
+        by_stage[stage] = {name: c - prev.get(name, 0) for name, c in counts.items()}
+        prev = counts
+    return dict(k=k, extended_k=vk.domain.extended_k, proof_bytes=len(proof), pinned_sha256=True,
+                verified=True,
+                flipped_byte_rejected=True, wrong_digest_rejected=True,
+                stages=dict(params_read_s=t1 - t0, keygen_s=t2 - t1, prove_first_s=prove_s[0],
+                            prove_warm_s=prove_s[1], verify_s=t5 - t4),
+                prove_spans_first=spans[0], prove_spans_warm=spans[1], totals_warm=totals,
+                launches=marks["verify"], launches_by_stage=by_stage)
+
+
+def mock_path(dev, k: int, row: int):
+    """MockProver on BenchCircuit at 2^k rows, its vectorised check on `dev`:
+    no failure; then a copy of the witness with the c cell of `row` changed
+    must report the gate's failure at that row, and the vectorised check
+    must render the same failures as the row loop, character for character."""
+    import copy
+
+    from halo2_tpu_torch.circuits import bench_circuit_for_k
+    from halo2_tpu_torch.dev.mock_prover import MockProver
+
+    circ = bench_circuit_for_k(k)
+    t0 = time.perf_counter()
+    prover = MockProver.run(k, circ, [], device=dev)
+    t1 = time.perf_counter()
+    failures = prover.verify()
+    sync(dev)
+    t2 = time.perf_counter()
+    require(failures == [], f"mock{k}: BenchCircuit failed: {[str(f) for f in failures[:3]]}")
+    bad = copy.copy(prover)
+    bad.advice = [list(col) for col in prover.advice]
+    c_col = 2  # BenchCircuit's advice columns a, b, c
+    kind, v = bad.advice[c_col][row]
+    bad.advice[c_col][row] = (kind, (v + 1) % prover.p)
+    t3 = time.perf_counter()
+    vec = [(f.kind, str(f)) for f in bad.verify(vectorized=True)]
+    sync(dev)
+    t4 = time.perf_counter()
+    rows = [(f.kind, str(f)) for f in bad.verify(vectorized=False)]
+    t5 = time.perf_counter()
+    gate = [text for kind, text in vec if kind == "constraint"]
+    require(len(gate) == 1 and f"at offset {row}]" in gate[0],
+            f"mock{k}: the planted failure at row {row} was not reported there: {gate}")
+    require(vec == rows, f"mock{k}: the vectorised check renders {vec} where the row loop renders {rows}")
+    return dict(k=k, rows=circ.rows, failures=0, planted_row=row,
+                planted_failures=[kind for kind, _ in vec], constraint_failure=gate[0],
+                same_text_as_row_loop=True, stages=dict(run_s=t1 - t0, verify_s=t2 - t1,
+                                                        planted_vectorized_s=t4 - t3,
+                                                        planted_row_loop_s=t5 - t4))
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -280,6 +415,7 @@ def main() -> int:
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont, ints_to_limbs, limbs_to_ints
     from halo2_tpu_torch.ops.msm import MSMBases, msm_host
     from halo2_tpu_torch.ops.ntt import NttPlan
+    from halo2_tpu_torch.plonk.batch import BatchVerifier
     from halo2_tpu_torch.plonk.error import OpeningError
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
     from halo2_tpu_torch.plonk.prover import create_proof
@@ -866,6 +1002,76 @@ def main() -> int:
           "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / warm_s,
           "kernels_event_ms": proof_ms, "kernels_traced_ms": traced_ms})
 
+    # ---- two more warm k = 14 proofs on the same keys: the plain full
+    # extended-domain fold (EVAL_H=full), then every msm() call on the sorted
+    # MSM (MSM=sorted, kernels 5-7); both must keep the pinned bytes ----
+    switch_runs = {}
+    for name, env in (("eval_h_full", {"EVAL_H": "full"}), ("msm_sorted", {"MSM": "sorted"})):
+        zero_launches()
+        reset_records()
+        with environ(**env):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = Blake2bWrite(Vesta)
+            create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        sha = hashlib.sha256(tr.finalize()).hexdigest()
+        require(sha == BENCH_K14_PROOF_SHA256, f"k=14 {env} proof sha256 {sha} != {BENCH_K14_PROOF_SHA256}")
+        switch_runs[name] = dict(env=env, prove_s=run_s, pinned_sha256=True,
+                                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                                 prove_spans=get_records(), launches=read_launches(),
+                                 routes=read_routes())
+        emit({"phase": f"k14_{name}", "circuit": "BenchCircuit", "k": k, "card": smi,
+              **switch_runs[name]})
+    launches_sorted14 = switch_runs["msm_sorted"]["launches"]
+    for name in k16_kernels:
+        require(launches_sorted14[name] > 0, f"kernel {name} was not launched by the k=14 MSM=sorted proof")
+    require(switch_runs["eval_h_full"]["launches"]["cg_ntt_level"] > 0,
+            "kernel 1 was not launched by the k=14 EVAL_H=full proof")
+
+    # ---- batch14: BatchVerifier over the pinned proof and one made with
+    # another rng; its one combined final MSM runs kernels 2-4 ----
+    tr = Blake2bWrite(Vesta)
+    create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2b" * 32), tr)
+    proof_b = tr.finalize()
+    require(proof_b != proof, "k=14 proofs under two rng seeds are equal")
+    zero_launches()
+    t0 = time.perf_counter()
+    batch = BatchVerifier()
+    batch.add_proof([[]], proof)
+    batch.add_proof([[]], proof_b)
+    accepted = batch.finalize(params, vk, ChaCha20Rng(b"\x55" * 32))
+    batch_s = time.perf_counter() - t0
+    batch_launches = read_launches()
+    require(accepted is True, "batch14: BatchVerifier rejected two valid k=14 proofs")
+    for name in msm_bucket.LAUNCHES:
+        require(batch_launches[name] > 0, f"batch14: kernel {name} was not launched by the final MSM")
+    flipped = bytearray(proof_b)
+    flipped[len(flipped) // 2] ^= 1
+    bad_batch = BatchVerifier()
+    bad_batch.add_proof([[]], proof)
+    bad_batch.add_proof([[]], bytes(flipped))
+    require(bad_batch.finalize(params, vk, ChaCha20Rng(b"\x56" * 32)) is False,
+            "batch14: BatchVerifier accepted a proof with a flipped byte")
+    emit({"phase": "batch14", "card": smi, "proofs": 2, "accepted": True, "flipped_byte_rejected": True,
+          "finalize_s": batch_s, "launches": batch_launches})
+
+    # ---- mock14: MockProver on BenchCircuit at k = 14, its vectorised
+    # check on the card (no kernel of csrc/ runs: limb arithmetic in torch) ----
+    zero_launches()
+    mock = mock_path(dev, k, 1000)
+    require(not any(read_launches().values()), "mock14 launched a kernel")
+    emit({"phase": "mock14", "card": smi, **mock})
+
+    # ---- poseidon11: gating config 2 (the Poseidon gadget at k = 11) ----
+    zero_launches()
+    poseidon = poseidon_path(dev, read_launches)
+    launches_poseidon = poseidon["launches"]
+    for name in k14_kernels:
+        require(launches_poseidon[name] > 0, f"kernel {name} was not launched on the poseidon11 path")
+    emit({"phase": "poseidon11", "circuit": "HashCircuit([7, 11])", "card": smi, **poseidon})
+
     # ---- NTT=pallas: the k = 14 path with every basis change on kernel 8 ----
     pinned = vk.pinned_repr()
     zero_launches()
@@ -978,20 +1184,11 @@ def main() -> int:
           "flipped_byte_rejected": True, "stages": kzg_stages, "prove_spans": kzg_spans,
           "verify_spans": kzg_verify_spans, "launches": launches_kzg})
 
-    # the same proof again, warm: the same bytes; its launches are one proof's
+    # device time of one warm KZG proof (the same bytes; its launches are one
+    # proof's): kernels 1-4 by CUDA events, every kernel on the card by
+    # torch.profiler
     zero_launches()
     reset_records()
-    t0 = time.perf_counter()
-    tr = Blake2bWrite(Bn254G1)
-    create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
-    require(tr.finalize() == proof_kzg, "warm KZG k=14 proof bytes differ from the first")
-    torch.cuda.synchronize()
-    kzg_warm_s = time.perf_counter() - t0
-    emit({"phase": "warm_kzg14", "prove_s": kzg_warm_s, "prove_spans": get_records(),
-          "launches": read_launches()})
-
-    # device time of one warm KZG proof: kernels 1-4 by CUDA events, every
-    # kernel on the card by torch.profiler
     event_log = []
     originals = {name: getattr(mod, name) for mod, name in wrapped_k14}
     for mod, name in wrapped_k14:
@@ -1013,8 +1210,9 @@ def main() -> int:
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
     emit({"phase": "device_time_kzg14", "profiled_prove_s": profiled_s,
+          "prove_spans": get_records(), "launches": read_launches(),
           "device_events": len(dev_events), "device_busy_ms": busy_ms,
-          "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / kzg_warm_s,
+          "device_busy_share_of_profiled_prove": None if busy_ms is None else busy_ms / 1e3 / profiled_s,
           "kernels_event_ms": kzg_proof_ms,
           "kernels_traced_ms": {name: sum(e.time_range.elapsed_us() for e in dev_events
                                           if sym in e.name) / 1e3
@@ -1140,22 +1338,18 @@ def main() -> int:
           "bucket_launches_by_stage": {stage: {name: counts[name] for name in msm_bucket.LAUNCHES}
                                        for stage, counts in stage_launches.items()}})
 
-    # the same proof with the sorted MSM switched off: the same bytes (a
-    # warm proof; the sorted one above was the first, so their times do not
-    # compare)
+    # the same proof with the sorted MSM switched off (MSM=pallas: every
+    # msm() call on the bucket MSM): the same bytes (a warm proof; the sorted
+    # one above was the first, so their times do not compare)
     zero_launches()
-    saved = msm_mod.SORTED_MSM_MIN
-    msm_mod.SORTED_MSM_MIN = 1 << 18
     reset_records()
-    try:
+    with environ(MSM="pallas"):
         t0 = time.perf_counter()
         tr = Blake2bWrite(Vesta)
         create_proof(params16, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
         unsorted_proof = tr.finalize()
         torch.cuda.synchronize()
         unsorted_s = time.perf_counter() - t0
-    finally:
-        msm_mod.SORTED_MSM_MIN = saved
     require(unsorted_proof == proof16, "k=16 proof bytes differ with the sorted MSM switched off")
     require(all(msm_sorted.LAUNCHES[name] == 0 for name in k16_kernels),
             "the sorted MSM ran while switched off")
@@ -1376,7 +1570,9 @@ def main() -> int:
                            if "levels" in rec else {}),
                         **({"bn254": rec["bn254"], "launches_kzg14": launches_kzg[name],
                             "ms_per_warm_kzg14_proof": kzg_proof_ms.get(name)}
-                           if "bn254" in rec else {})})
+                           if "bn254" in rec else {}),
+                        "launches_poseidon11": launches_poseidon[name],
+                        "launches_k14_msm_sorted": launches_sorted14[name]})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")
     require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),

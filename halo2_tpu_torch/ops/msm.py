@@ -4,15 +4,28 @@ the sorted-bucket MSM.
 Counterpart of `halo2_tpu/ops/msm.py`. `msm_host` is the reference's
 `best_multiexp` bucket method over Python bigints (`arithmetic.rs:41-198`),
 used for small MSMs and as the oracle. `msm` routes as the JAX package does
-(`halo2_tpu/ops/msm.py:309-330`): below 2^12 points to the host; from 2^16
-points, when the largest scalar is at least 2^128, to the sorted-bucket MSM
-(`ops/msm_sorted.py`), and on its BucketOverflow, or otherwise, to the
-bucket pipeline (`ops/msm_bucket.py`), on the bases' device. `ROUTES` counts
-per call site how often an MSM of 2^16 points or more took each way.
+(`halo2_tpu/ops/msm.py:286-330`): below 2^12 points to the host; above, by
+the environment variable MSM, read at each call:
+
+- unset or "auto": from 2^16 points, when the largest scalar is at least
+  2^128, to the sorted-bucket MSM (`ops/msm_sorted.py`), and on its
+  BucketOverflow, or otherwise, to the bucket pipeline (`ops/msm_bucket.py`);
+- "host": `msm_host`;
+- "pallas": the bucket pipeline (kernels 2-4) at every size;
+- "sorted": the sorted-bucket MSM (kernels 5-7) at every size, and the
+  bucket pipeline on its BucketOverflow;
+- "jax": the bucket pipeline's plain torch versions, the counterpart of the
+  JAX package's plain device MSM (a debug route that "auto" never takes).
+
+Any other value raises ValueError (the JAX dispatcher sends it to its plain
+device MSM without a word). The device MSMs run on the bases' device.
+`ROUTES` counts per call site how often a device MSM tried the sorted MSM
+and how it ended, and how often "auto" held one back by its scalars.
 """
 
 from __future__ import annotations
 
+import os
 from collections import Counter
 from typing import Optional, Sequence, Type
 
@@ -24,6 +37,7 @@ from .field import ints_to_limbs
 
 DEVICE_MSM_MIN = 1 << 12
 SORTED_MSM_MIN = 1 << 16
+MSM_ROUTES = ("auto", "host", "pallas", "sorted", "jax")
 # (call site, "sorted" | "overflow" | "small_scalars") -> count. "overflow"
 # MSMs went to the sorted MSM first and then to the bucket MSM;
 # "small_scalars" ones failed the host pre-check (largest scalar < 2^128).
@@ -114,6 +128,9 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
     from .msm_bucket import msm_bucket_many
     from .msm_sorted import BucketOverflow, msm_sorted
 
+    impl = os.environ.get("MSM", "auto")
+    if impl not in MSM_ROUTES:
+        raise ValueError(f"MSM={impl!r}: expected one of {', '.join(MSM_ROUTES)}")
     if isinstance(bases, MSMBases):
         curve = bases.curve
         host_points = bases.host_points
@@ -125,8 +142,8 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
         if device is None:
             raise ValueError("msm: a list of points needs a device")
     n = len(scalars)
-    with span(f"msm n={n}"):
-        if n < DEVICE_MSM_MIN:
+    with span(f"msm n={n}", category="msm"):
+        if n < DEVICE_MSM_MIN or impl == "host":
             return msm_host(scalars, host_points[:n], curve)
         if not isinstance(bases, MSMBases):
             keep = [i for i, pt in enumerate(host_points[:n]) if not pt.is_identity()]
@@ -137,10 +154,12 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
         q = curve.SCALAR.MODULUS
         ints = [int(s) % q for s in scalars]
         canon = torch.as_tensor(ints_to_limbs(ints), device=device)
-        if n >= SORTED_MSM_MIN:
+        if impl == "jax":
+            return msm_bucket_many(canon[None], bases, mont=False, plain=True)[0]
+        if impl == "sorted" or (impl == "auto" and n >= SORTED_MSM_MIN):
             # small or structured scalars (selector and constant columns) put
             # their digits in few lanes and would overflow the sorted MSM
-            if max(ints, default=0) < 1 << 128:
+            if impl == "auto" and max(ints, default=0) < 1 << 128:
                 ROUTES[site, "small_scalars"] += 1
             else:
                 try:

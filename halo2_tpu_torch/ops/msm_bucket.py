@@ -302,9 +302,10 @@ class DeviceBases:
         self.py = torch.as_tensor(ints_to_limbs(ys), device=device).t().contiguous()
 
 
-def window_sums(scal: torch.Tensor, bases, mont: bool = True) -> torch.Tensor:
+def window_sums(scal: torch.Tensor, bases, mont: bool = True, plain: bool = False) -> torch.Tensor:
     """Device stages of the MSM: (M, n, 16) scalars -> (M * nwin, 3, 16)
-    projective window sums."""
+    projective window sums; `plain` runs the stages' plain versions on any
+    device (the route MSM=jax of `ops/msm.py`)."""
     curve = bases.curve
     M, n, _ = scal.shape
     c, nwin, T, n_pad = msm_geometry(curve, n, scal.device)
@@ -312,19 +313,22 @@ def window_sums(scal: torch.Tensor, bases, mont: bool = True) -> torch.Tensor:
     canon = from_mont(scal, FieldCtx(curve.SCALAR)) if mont else scal
     canon = torch.nn.functional.pad(canon.transpose(1, 2), (0, n_pad - n)).contiguous()
     cc = bases.cc
+    if plain:
+        buckets = msm_accum_plain(canon, db.px, db.py, c, nwin, T, cc)
+        return msm_lane_reduce_plain(msm_fold_plain(buckets, cc), cc)
     buckets = msm_accum(canon, db.px, db.py, c, nwin, T, cc)
     parts = msm_fold(buckets, cc)
     return msm_lane_reduce(parts, cc)
 
 
-def msm_bucket_many(scal: torch.Tensor, bases, mont: bool = True) -> List[Point]:
+def msm_bucket_many(scal: torch.Tensor, bases, mont: bool = True, plain: bool = False) -> List[Point]:
     """M MSMs over shared bases: scal (M, n, 16) limb tensors (Montgomery
     when mont=True, canonical [0, q) otherwise) -> M Points, the same group
-    elements as `msm_host`."""
+    elements as `msm_host`; `plain` as in `window_sums`."""
     curve = bases.curve
     M, n, _ = scal.shape
     c, nwin, _, _ = msm_geometry(curve, n, scal.device)
-    sums = window_sums(scal, bases, mont)
+    sums = window_sums(scal, bases, mont, plain)
     wins = bases.cc.decode_points(PointVec(sums[:, 0], sums[:, 1], sums[:, 2]))
     p = curve.p()
     out = []

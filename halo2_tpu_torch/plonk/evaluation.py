@@ -7,18 +7,20 @@ powers of y in exactly the verifier's expression order
 (`plonk/verifier.rs:245-327`, `permutation/verifier.rs:115-196`,
 `lookup/verifier.rs:80-167`).
 
-Counterpart of `halo2_tpu/plonk/evaluation.py`, with its default engine
-only: the fork's memory-optimized *part-wise* walk with constraint clusters
-and `need_to_compute` part skipping (evaluation.rs:394-975). Each part's
+Counterpart of `halo2_tpu/plonk/evaluation.py`. The default engine is the
+fork's memory-optimized *part-wise* walk with constraint clusters and
+`need_to_compute` part skipping (evaluation.rs:394-975); `EVAL_H=full`
+selects the plain full extended-domain fold (the equivalence oracle). Each
 fold runs eagerly as tensor code on the proving key's device.
 """
 
 from __future__ import annotations
 
+import os
 from types import SimpleNamespace
 from typing import Dict, List, Optional
 
-from ..poly import LAGRANGE, FVec, Polynomial
+from ..poly import EXTENDED, LAGRANGE, FVec, Polynomial
 from ..ops.ntt import powers
 from .expression import ADVICE, FIXED, Expression
 
@@ -70,10 +72,22 @@ class Evaluator:
         lookups: List[List],
         permutations: List,
     ) -> Polynomial:
-        return self.evaluate_h_parts(
-            advice_polys, instance_polys, challenges, y, beta, gamma, theta, lookups,
-            permutations,
-        )
+        """Dispatch on EVAL_H, read at each call: unset or "parts", the
+        part-wise walk; "full", the plain full extended-domain fold. The JAX
+        package's "mesh" (its SPMD fold) has no port yet and raises
+        NotImplementedError; any other value raises ValueError (the JAX
+        dispatcher takes the part-wise walk without a word)."""
+        mode = os.environ.get("EVAL_H", "parts")
+        args = (advice_polys, instance_polys, challenges, y, beta, gamma,
+                theta, lookups, permutations)
+        if mode == "full":
+            return self.evaluate_h_full(*args)
+        if mode == "parts":
+            return self.evaluate_h_parts(*args)
+        if mode == "mesh":
+            raise NotImplementedError(
+                "EVAL_H=mesh: the port has no mesh yet (ROADMAP.md, the multi-device item)")
+        raise ValueError(f"EVAL_H={mode!r}: expected parts or full")
 
     def _fold_machinery(
         self,
@@ -423,3 +437,153 @@ class Evaluator:
             factor = factor * domain.extended_omega % p
 
         return domain.lagrange_vecs_to_extended(value_part_clusters)
+
+    def evaluate_h_full(
+        self,
+        advice_polys: List[List[Polynomial]],  # per proof, coeff basis
+        instance_polys: List[List[Polynomial]],
+        challenges: List[int],
+        y: int,
+        beta: int,
+        gamma: int,
+        theta: int,
+        lookups: List[List],  # per proof: CommittedLookup
+        permutations: List,  # per proof: CommittedPermutation (sets)
+    ) -> Polynomial:
+        """The plain y-Horner fold of every constraint over the whole
+        extended coset, every column held there at once."""
+        pk = self.pk
+        domain = self.domain
+        F = self.field
+        p = F.MODULUS
+        cs = pk.vk.cs
+        ext_n = domain.extended_n
+        dev = domain.device
+
+        ext_cache: Dict[int, FVec] = {}
+
+        def ext(poly: Polynomial) -> FVec:
+            key = id(poly)
+            if key not in ext_cache:
+                ext_cache[key] = domain.coeff_to_extended(poly.copy()).vec
+            return ext_cache[key]
+
+        def rot_ext(vec: FVec, r: int) -> FVec:
+            step = (1 << (domain.extended_k - domain.k)) * r
+            return vec.rotate(step)
+
+        fixed_ext = [ext(poly) for poly in pk.fixed_polys]
+        l0 = ext(pk.l0)
+        l_last = ext(pk.l_last)
+        l_active = ext(pk.l_active_row)
+
+        # coset point coordinates zeta * ext_omega^i (for the beta*X term)
+        pw = powers(domain.extended_omega, ext_n, domain.ctx, dev)
+        coset_x = FVec(F, domain.ctx.mul(pw, domain.ctx.const(domain.g_coset, dev)))
+
+        def const_vec(c: int) -> FVec:
+            return FVec.fill(F, ext_n, c, dev)
+
+        one = const_vec(1)
+
+        h: Optional[FVec] = None
+
+        def fold(value: FVec):
+            nonlocal h
+            if h is None:
+                h = value
+            else:
+                h = h * F(y) + value
+
+        def eval_expr(expr: Expression, advice_ext, instance_ext) -> FVec:
+            return expr.evaluate(
+                constant=lambda c: const_vec(c),
+                selector=lambda s: (_ for _ in ()).throw(
+                    ValueError("virtual selector in evaluate_h")
+                ),
+                fixed=lambda q: rot_ext(fixed_ext[q.column_index], q.rotation.i),
+                advice=lambda q: rot_ext(advice_ext[q.column_index], q.rotation.i),
+                instance=lambda q: rot_ext(instance_ext[q.column_index], q.rotation.i),
+                challenge=lambda c: const_vec(challenges[c.index]),
+                negated=lambda a: -a,
+                sum_=lambda a, b: a + b,
+                product=lambda a, b: a * b,
+                scaled=lambda a, f: a * F(f),
+            )
+
+        blinding = cs.blinding_factors()
+        last_rotation = -(blinding + 1)
+        chunk_len = pk.vk.cs_degree - 2
+        delta = F.DELTA
+
+        for proof_idx in range(len(advice_polys)):
+            advice_ext = [ext(poly) for poly in advice_polys[proof_idx]]
+            instance_ext = [ext(poly) for poly in instance_polys[proof_idx]]
+
+            # ---- custom gates ----
+            for gate in cs.gates:
+                for poly in gate.polys:
+                    fold(eval_expr(poly, advice_ext, instance_ext))
+
+            # ---- permutation argument ----
+            sets = permutations[proof_idx].sets
+            if sets:
+                z_ext = [ext(s.poly) for s in sets]
+                # l_0(X) * (1 - z_0(X))
+                fold(l0 * (one - z_ext[0]))
+                # l_last(X) * (z_l(X)^2 - z_l(X))
+                zl = z_ext[-1]
+                fold(l_last * (zl * zl - zl))
+                # l_0(X) * (z_i(X) - z_{i-1}(omega^last X))
+                for i in range(1, len(sets)):
+                    fold(l0 * (z_ext[i] - rot_ext(z_ext[i - 1], last_rotation)))
+                # product constraints per chunk
+                sigma_ext = [ext(sp) for sp in pk.permutation.polys]
+                columns = cs.permutation.columns
+                for chunk_index in range(len(sets)):
+                    cols = columns[chunk_index * chunk_len:(chunk_index + 1) * chunk_len]
+                    sigmas = sigma_ext[chunk_index * chunk_len:(chunk_index + 1) * chunk_len]
+                    left = rot_ext(z_ext[chunk_index], 1)
+                    for col, sigma in zip(cols, sigmas):
+                        cv = self._column_ext(col, fixed_ext, advice_ext, instance_ext)
+                        left = left * (cv + sigma * F(beta) + F(gamma))
+                    right = z_ext[chunk_index]
+                    cur = beta * pow(delta, chunk_index * chunk_len, p) % p
+                    for col in cols:
+                        cv = self._column_ext(col, fixed_ext, advice_ext, instance_ext)
+                        right = right * (cv + coset_x * F(cur) + F(gamma))
+                        cur = cur * delta % p
+                    fold(l_active * (left - right))
+
+            # ---- lookups ----
+            for lk_idx, committed in enumerate(lookups[proof_idx]):
+                argument = cs.lookups[lk_idx]
+                z = ext(committed.product_poly)
+                a_prime = ext(committed.permuted_input_poly)
+                s_prime = ext(committed.permuted_table_poly)
+                fold(l0 * (one - z))
+                fold(l_last * (z * z - z))
+
+                def compress(expressions):
+                    acc = const_vec(0)
+                    for e in expressions:
+                        acc = acc * F(theta) + eval_expr(e, advice_ext, instance_ext)
+                    return acc
+
+                inp = compress(argument.input_expressions)
+                tab = compress(argument.table_expressions)
+                left = rot_ext(z, 1) * (a_prime + F(beta)) * (s_prime + F(gamma))
+                right = z * (inp + F(beta)) * (tab + F(gamma))
+                fold(l_active * (left - right))
+                fold(l0 * (a_prime - s_prime))
+                fold(l_active * (a_prime - s_prime) * (a_prime - rot_ext(a_prime, -1)))
+
+        assert h is not None, "no constraints to evaluate"
+        return Polynomial(EXTENDED, h)
+
+    def _column_ext(self, column, fixed_ext, advice_ext, instance_ext) -> FVec:
+        if column.kind == FIXED:
+            return fixed_ext[column.index]
+        if column.kind == ADVICE:
+            return advice_ext[column.index]
+        return instance_ext[column.index]

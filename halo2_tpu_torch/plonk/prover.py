@@ -120,7 +120,9 @@ def create_proof(params, pk: ProvingKey, circuits: List, instances: List[List[Li
     query_instance, multiopen_prove_fn, _ = _dispatch_scheme(params, multiopen)
     dev = params.device
 
-    from ..utils.measure import span
+    from ..utils.measure import report_totals, reset_totals, span
+
+    reset_totals()
 
     for inst in instances:
         if len(inst) != cs.num_instance_columns:
@@ -358,3 +360,4 @@ def create_proof(params, pk: ProvingKey, circuits: List, instances: List[List[Li
 
     multiopen_prove_fn(params, rng, transcript, queries)
     stage.__exit__(None, None, None)
+    report_totals()

@@ -16,6 +16,7 @@ from ..fields import FieldElement
 from ..ops import field as fo
 from ..ops.field import NLIMBS
 from ..ops.ntt import get_plan, powers
+from ..utils.measure import span
 from . import COEFF, EXTENDED, LAGRANGE, FVec, Polynomial, Rotation
 
 
@@ -59,8 +60,11 @@ class EvaluationDomain:
         self.barycentric_weight = pow(self.n, -1, p)
         self._powers: dict = {}
 
-    def _plan(self, log_n: int, omega: int):
-        return get_plan(self.field, log_n, omega)
+    def _ntt(self, log_n: int, omega: int, v: torch.Tensor) -> torch.Tensor:
+        """The DFT of v with omega on the engine NTT names, timed into the
+        'fft' total (the JAX package's span in `NttPlan.__call__`)."""
+        with span(f"ntt 2^{log_n}", category="fft"):
+            return get_plan(self.field, log_n, omega)(v)
 
     def _const(self, v: int) -> torch.Tensor:
         return self.ctx.const(v, self.device)
@@ -92,7 +96,7 @@ class EvaluationDomain:
     # ---------------- transforms ----------------
     def lagrange_to_coeff(self, a: Polynomial) -> Polynomial:
         assert a.basis == LAGRANGE and len(a) == self.n
-        out = self._plan(self.k, self.omega_inv)(a.vec.vals)
+        out = self._ntt(self.k, self.omega_inv, a.vec.vals)
         out = self.ctx.mul(out, self._const(self.ifft_divisor))
         return Polynomial(COEFF, FVec(self.field, out))
 
@@ -100,7 +104,7 @@ class EvaluationDomain:
         assert a.basis == COEFF and len(a) == self.n
         v = self._distribute_powers_zeta(a.vec.vals, into_coset=True)
         v = torch.nn.functional.pad(v, (0, 0, 0, self.extended_n - self.n))
-        return Polynomial(EXTENDED, FVec(self.field, self._plan(self.extended_k, self.extended_omega)(v)))
+        return Polynomial(EXTENDED, FVec(self.field, self._ntt(self.extended_k, self.extended_omega, v)))
 
     def coeff_to_extended_part(self, a: Polynomial, ext_omega_factor: int) -> Polynomial:
         """FFT(f(zeta * ext_omega_factor * X), n) - one O(n) part of the
@@ -108,7 +112,7 @@ class EvaluationDomain:
         assert a.basis == COEFF and len(a) == self.n
         c = self.g_coset * ext_omega_factor % self.field.MODULUS
         v = self._distribute_powers(a.vec.vals, c)
-        return Polynomial(LAGRANGE, FVec(self.field, self._plan(self.k, self.omega)(v)))
+        return Polynomial(LAGRANGE, FVec(self.field, self._ntt(self.k, self.omega, v)))
 
     def coeff_to_extended_parts(self, a: Polynomial) -> List[Polynomial]:
         num_parts = self.extended_n >> self.k
@@ -130,7 +134,7 @@ class EvaluationDomain:
         """iFFT out of the extended coset; truncated to quotient size
         (reference domain.rs:404-430)."""
         assert a.basis == EXTENDED and len(a) == self.extended_n
-        v = self._plan(self.extended_k, self.extended_omega_inv)(a.vec.vals)
+        v = self._ntt(self.extended_k, self.extended_omega_inv, a.vec.vals)
         v = self.ctx.mul(v, self._const(self.extended_ifft_divisor))
         v = self._distribute_powers_zeta(v, into_coset=False)
         return FVec(self.field, v[: self.n * self.quotient_poly_degree])
@@ -162,12 +166,12 @@ class EvaluationDomain:
             assert len(parts) == (1 << i)
             size = self.n << i
             vec = torch.stack([pp.vec.vals for pp in parts], dim=1).reshape(size, NLIMBS)
-            v = self._plan(self.k + i, omega_inv)(vec)
+            v = self._ntt(self.k + i, omega_inv, vec)
             v = self.ctx.mul(v, self._const(ifft_divisor))  # 1 / 2^(k+i)
             ifft_divisor = ifft_divisor * 2 % p
             omega_inv = omega_inv * omega_inv % p
             result = torch.cat([self.ctx.add(result[:size], v), result[size:]], dim=0)
-        merged = self._plan(self.extended_k, self.extended_omega)(result)
+        merged = self._ntt(self.extended_k, self.extended_omega, result)
         return Polynomial(EXTENDED, FVec(self.field, self.ctx.add(result_poly.vec.vals, merged)))
 
     def divide_by_vanishing_poly(self, a: Polynomial) -> Polynomial:

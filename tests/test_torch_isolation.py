@@ -10,7 +10,9 @@ import sys
 import pytest
 import torch
 
+from halo2_tpu_torch.circuits import MulCircuit
 from halo2_tpu_torch.curves import Vesta
+from halo2_tpu_torch.dev.mock_prover import MockProver
 from halo2_tpu_torch.ops import msm_bucket, msm_sorted, ntt_mr, tile_bench
 from halo2_tpu_torch.ops.curve import CurveCtx
 from halo2_tpu_torch.poly.ipa import ParamsIPA, resolve_device
@@ -28,6 +30,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "halo2_tpu_torch.ops.msm_sorted" in mods
     assert {"halo2_tpu_torch.ops.ntt_mr", "halo2_tpu_torch.ops.mxu_mont",
             "halo2_tpu_torch.tools.profile_kernels"} <= set(mods)
+    assert {"halo2_tpu_torch.dev.mock_prover", "halo2_tpu_torch.plonk.batch",
+            "halo2_tpu_torch.gadgets.poseidon"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,6 +74,14 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ParamsIPA.cached(Vesta, 4)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mock_prover_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MockProver.run(4, MulCircuit(7, 2, 3), [[252]])
+    prover = MockProver.run(4, MulCircuit(7, 2, 3), [[252]], device="cpu")
+    assert prover.device == torch.device("cpu") and prover.verify(vectorized=True) == []
 
 
 def test_kernel_wrappers_refuse_other_devices():
