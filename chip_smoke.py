@@ -41,6 +41,19 @@ counters set to 0 just before it and read just after:
   (POSEIDON_K11_PROOF_SHA256); a flipped byte and a wrong digest fail to
   verify. Kernels 1-4 run (the batched commits and the IPA rounds go to the
   bucket MSM; single MSMs of 2^11 points stay on the host).
+* sinsemilla14: gating config 4 of BASELINE.md, the Sinsemilla hash gadget
+  at k = 14 (SinsemillaCircuit, 3 words, the 2^10-row generator table under
+  the lookup argument, circuits.sinsemilla_k14): params -> keygen -> a
+  first, a warm and a traced proof (kernels 1-4 by CUDA events, the card by
+  torch.profiler) -> verify, to the bytes of the card's first proof
+  (SINSEMILLA_K14_PROOF_SHA256); a flipped byte fails to verify. Kernels 1-4
+  run. sinsemilla11: the same circuit and seeds at k = 11, to the bytes the
+  port's plain path gives on the CPU (SINSEMILLA_K11_PROOF_SHA256).
+* ecc_mock: MockProver on the ECC and Merkle gadgets, its vectorised check
+  on the card: full-width variable-base and fixed-base multiplications at
+  k = 12, a depth-2 Merkle path at k = 11; no failure, and a planted wrong
+  cell (a swapped node and sibling for the Merkle path) reported at its row
+  with the row loop's text.
 * KZG at k = 14 (route `kzg14`): ParamsKZG (BN254) -> keygen_vk ->
   keygen_pk -> create_proof (SHPLONK, Blake2b) -> verify_proof (a pairing
   check on the host) for BenchCircuit over FrBn, which runs kernels 1-4 in
@@ -137,6 +150,13 @@ BENCH_KZG_K14_PROOF_SHA256 = "caeb836fcc28301792ec18ed652290d83dc5599474940f2192
 # the sha256 of the proof the JAX package makes on the CPU
 # (tests/test_torch_gadgets.py names the command).
 POSEIDON_K11_PROOF_SHA256 = "23e86128f8ff13e45491b2d503d84b2240e3946cc0c0239a9d6cd722b6a6ac25"
+# Gating config 4, SinsemillaCircuit (3 words, bits from random.Random(21),
+# ChaCha20Rng(b"\x04" * 32)): the sha256 of the card's first proofs at k = 11
+# and k = 14; the port's plain path on the CPU gives the k = 11 bytes too. The
+# JAX package's k = 11 proof (`python tests/test_torch_sinsemilla.py 11` on
+# the CPU) is the cross-package check, not yet made.
+SINSEMILLA_K11_PROOF_SHA256 = "b8ba0577e970f481f0b1c4cbb7affaab5eb6f2f4788ba6251075a7c80420152f"
+SINSEMILLA_K14_PROOF_SHA256 = "b6f17028fe899840f594d8b4a08d8983bb5912124c9de98bc199569a86fcd052"
 
 # Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
 # work the assumed peak is 64 32-bit multiply instructions per clock per SM
@@ -203,6 +223,39 @@ def timed(name, fn, log):
         log.append((name, start, end))
         return out
     return run
+
+
+KERNEL_SYMBOLS = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
+                  "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<"}
+
+
+def traced_proof(prove, wrapped):
+    """prove() once, each (module, name) of `wrapped` timed by CUDA events
+    and every kernel on the card traced by torch.profiler: (its result,
+    {profiled_prove_s, device_events, device_busy_ms, kernels_event_ms,
+    kernels_traced_ms})."""
+    event_log = []
+    originals = {name: getattr(mod, name) for mod, name in wrapped}
+    for mod, name in wrapped:
+        setattr(mod, name, timed(name, originals[name], event_log))
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = prove()
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+    finally:
+        for mod, name in wrapped:
+            setattr(mod, name, originals[name])
+    event_ms = {name: 0.0 for name in originals}
+    for name, start, end in event_log:
+        event_ms[name] += start.elapsed_time(end)
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
+                 for name, sym in KERNEL_SYMBOLS.items() if name in originals}
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
+    return out, dict(profiled_prove_s=profiled_s, device_events=len(dev_events), device_busy_ms=busy_ms,
+                     kernels_event_ms=event_ms, kernels_traced_ms=traced_ms)
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -285,15 +338,14 @@ def environ(**values):
                 os.environ[name] = v
 
 
-def poseidon_path(dev, read_launches):
-    """Gating config 2 through the entry points: ParamsIPA.cached(Vesta, 11)
+def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, pinned, wrong=None,
+               wrapped=()):
+    """A gating config through the entry points: ParamsIPA.cached(Vesta, k)
     -> keygen_vk -> keygen_pk -> create_proof (Blake2b; a first and a warm
-    proof) -> verify_proof for HashCircuit([7, 11]), whose one public input
-    is its Poseidon digest. The proof must have the JAX package's bytes,
-    verify, and fail to verify with a flipped byte or a wrong digest."""
-    from halo2_tpu_torch.circuits import poseidon_k11
+    proof, and with `wrapped` kernels a third, traced by traced_proof) ->
+    verify_proof. The proof must have the `pinned` sha256, verify, and fail
+    to verify with a flipped byte or with the `wrong` instances."""
     from halo2_tpu_torch.curves import Vesta
-    from halo2_tpu_torch.fields import Fp
     from halo2_tpu_torch.plonk.error import OpeningError
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
     from halo2_tpu_torch.plonk.prover import create_proof
@@ -303,8 +355,7 @@ def poseidon_path(dev, read_launches):
     from halo2_tpu_torch.utils.chacha import ChaCha20Rng
     from halo2_tpu_torch.utils.measure import get_records, get_totals, reset_records
 
-    k, circ, instances, seed = poseidon_k11()
-    marks = {}
+    marks, routes = {}, {}
     t0 = time.perf_counter()
     params = ParamsIPA.cached(Vesta, k, device=dev)
     t1 = time.perf_counter()
@@ -312,8 +363,8 @@ def poseidon_path(dev, read_launches):
     pk = keygen_pk(params, vk, circ.without_witnesses())
     sync(dev)
     t2 = time.perf_counter()
-    marks["keygen"] = read_launches()
-    proofs, prove_s, spans = [], [], []
+    marks["keygen"], routes["keygen"] = read_launches(), read_routes()
+    proofs, prove_s, spans, totals = [], [], [], []
     for _ in range(2):  # the first proof, then a warm one
         reset_records()
         t3 = time.perf_counter()
@@ -323,77 +374,152 @@ def poseidon_path(dev, read_launches):
         sync(dev)
         prove_s.append(time.perf_counter() - t3)
         spans.append(get_records())
-        marks[f"prove_{len(proofs)}"] = read_launches()
-    totals = get_totals()
+        totals.append(get_totals())
+        marks[f"prove_{len(proofs)}"], routes[f"prove_{len(proofs)}"] = read_launches(), read_routes()
     proof = proofs[0]
-    require(proofs[1] == proof, "poseidon11: the warm proof's bytes differ from the first")
+    require(proofs[1] == proof, f"{tag}: the warm proof's bytes differ from the first")
+    traced = None
+    if wrapped:
+        def prove():
+            tr = Blake2bWrite(Vesta)
+            create_proof(params, pk, [circ], [instances], ChaCha20Rng(seed), tr)
+            return tr.finalize()
+
+        proof_again, traced = traced_proof(prove, wrapped)
+        require(proof_again == proof, f"{tag}: the traced proof's bytes differ from the first")
+        busy_ms = traced["device_busy_ms"]
+        traced["device_busy_share_of_warm_prove"] = None if busy_ms is None else busy_ms / 1e3 / prove_s[1]
+        marks["prove_traced"], routes["prove_traced"] = read_launches(), read_routes()
     t4 = time.perf_counter()
     ok = verify_proof(params, vk, [instances], Blake2bRead(Vesta, proof))
     t5 = time.perf_counter()
-    marks["verify"] = read_launches()
-    require(ok is True, "poseidon11: verify")
+    marks["verify"], routes["verify"] = read_launches(), read_routes()
+    require(ok is True, f"{tag}: verify")
     sha = hashlib.sha256(proof).hexdigest()
-    require(sha == POSEIDON_K11_PROOF_SHA256, f"poseidon11 proof sha256 {sha} != {POSEIDON_K11_PROOF_SHA256}")
+    require(sha == pinned, f"{tag} proof sha256 {sha} != {pinned}")
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
-    wrong = [[(instances[0][0] + 1) % Fp.MODULUS]]
-    for inst, data, what in ((instances, bytes(bad), "a flipped byte"), (wrong, proof, "a wrong digest")):
+    checks = [(instances, bytes(bad), "a flipped byte")]
+    if wrong is not None:
+        checks.append((wrong, proof, "wrong instances"))
+    for inst, data, what in checks:
         try:
             rejected = verify_proof(params, vk, [inst], Blake2bRead(Vesta, data)) is not True
         except (OpeningError, TranscriptError):
             rejected = True
-        require(rejected, f"poseidon11: a proof with {what} was accepted")
+        require(rejected, f"{tag}: a proof with {what} was accepted")
     by_stage, prev = {}, {}
     for stage, counts in marks.items():
         by_stage[stage] = {name: c - prev.get(name, 0) for name, c in counts.items()}
         prev = counts
     return dict(k=k, extended_k=vk.domain.extended_k, proof_bytes=len(proof), pinned_sha256=True,
-                verified=True,
-                flipped_byte_rejected=True, wrong_digest_rejected=True,
+                verified=True, flipped_byte_rejected=True, wrong_instances_rejected=wrong is not None,
                 stages=dict(params_read_s=t1 - t0, keygen_s=t2 - t1, prove_first_s=prove_s[0],
                             prove_warm_s=prove_s[1], verify_s=t5 - t4),
-                prove_spans_first=spans[0], prove_spans_warm=spans[1], totals_warm=totals,
-                launches=marks["verify"], launches_by_stage=by_stage)
+                prove_spans_first=spans[0], prove_spans_warm=spans[1], totals_first=totals[0],
+                totals_warm=totals[1],
+                launches=marks["verify"], launches_by_stage=by_stage, routes_by_stage=routes,
+                traced_warm=traced)
 
 
-def mock_path(dev, k: int, row: int):
-    """MockProver on BenchCircuit at 2^k rows, its vectorised check on `dev`:
-    no failure; then a copy of the witness with the c cell of `row` changed
-    must report the gate's failure at that row, and the vectorised check
-    must render the same failures as the row loop, character for character."""
+def planted_failure(prover, tag: str, plant, constraints: int):
+    """`plant(prover, advice)` changes cells of `advice`, a copy of the
+    prover's witness, and returns the row it planted at. The copy's
+    vectorised check must report `constraints` constraint failures, all at
+    that row (in its region, at its offset), and render every failure as
+    the row loop does, character for character."""
     import copy
 
-    from halo2_tpu_torch.circuits import bench_circuit_for_k
+    from halo2_tpu_torch.dev.mock_prover import FailureLocation
+
+    bad = copy.copy(prover)
+    bad.advice = [list(col) for col in prover.advice]
+    row = plant(prover, bad.advice)
+    t0 = time.perf_counter()
+    vec = [(f.kind, str(f)) for f in bad.verify(vectorized=True)]
+    sync(prover.device)
+    t1 = time.perf_counter()
+    rows = [(f.kind, str(f)) for f in bad.verify(vectorized=False)]
+    t2 = time.perf_counter()
+    where = f"[{FailureLocation.find(prover.regions, row)}]"
+    gate = [text for kind, text in vec if kind == "constraint"]
+    require(len(gate) == constraints and all(where in text for text in gate),
+            f"{tag}: the planted failure at row {row} was not reported {where} {constraints} times: {gate}")
+    require(vec == rows, f"{tag}: the vectorised check renders {vec} where the row loop renders {rows}")
+    return dict(planted_row=row, planted_failures=[kind for kind, _ in vec], constraint_failure=gate[0],
+                same_text_as_row_loop=True, planted_vectorized_s=t1 - t0, planted_row_loop_s=t2 - t1)
+
+
+def bump(col: int, row: int):
+    """A plant that adds one to the advice cell (col, row)."""
+    def plant(prover, advice):
+        kind, v = advice[col][row]
+        advice[col][row] = (kind, (v + 1) % prover.p)
+        return row
+    return plant
+
+
+def swap_first_cond_swap(prover, advice):
+    """A plant that swaps the two outputs of the Merkle path's first
+    cond-swap: the node and its sibling trade places."""
+    from halo2_tpu_torch.circuits import MerkleCircuit
+    from halo2_tpu_torch.plonk import ConstraintSystem
+
+    cfg = MerkleCircuit.configure(ConstraintSystem()).cond_swap
+    a, b = cfg.a_swapped.index, cfg.b_swapped.index
+    row = next(r.rows[0] for r in prover.regions if r.name == "swap")
+    advice[a][row], advice[b][row] = advice[b][row], advice[a][row]
+    return row
+
+
+def mock_run(dev, tag: str, k: int, circ, plant, constraints: int):
+    """MockProver on `circ` at 2^k rows, its vectorised check on `dev`: no
+    failure; then `plant` on a copy of the witness (planted_failure)."""
     from halo2_tpu_torch.dev.mock_prover import MockProver
 
-    circ = bench_circuit_for_k(k)
     t0 = time.perf_counter()
     prover = MockProver.run(k, circ, [], device=dev)
     t1 = time.perf_counter()
-    failures = prover.verify()
+    failures = prover.verify(vectorized=True)
     sync(dev)
     t2 = time.perf_counter()
-    require(failures == [], f"mock{k}: BenchCircuit failed: {[str(f) for f in failures[:3]]}")
-    bad = copy.copy(prover)
-    bad.advice = [list(col) for col in prover.advice]
+    require(failures == [], f"{tag}: failed: {[str(f) for f in failures[:3]]}")
+    return dict(k=k, failures=0, **planted_failure(prover, tag, plant, constraints),
+                stages=dict(run_s=t1 - t0, verify_s=t2 - t1))
+
+
+def mock_path(dev, k: int, row: int):
+    """MockProver on BenchCircuit at 2^k rows, its vectorised check on `dev`,
+    with the c cell of `row` changed in the planted copy."""
+    from halo2_tpu_torch.circuits import bench_circuit_for_k
+
+    circ = bench_circuit_for_k(k)
     c_col = 2  # BenchCircuit's advice columns a, b, c
-    kind, v = bad.advice[c_col][row]
-    bad.advice[c_col][row] = (kind, (v + 1) % prover.p)
-    t3 = time.perf_counter()
-    vec = [(f.kind, str(f)) for f in bad.verify(vectorized=True)]
-    sync(dev)
-    t4 = time.perf_counter()
-    rows = [(f.kind, str(f)) for f in bad.verify(vectorized=False)]
-    t5 = time.perf_counter()
-    gate = [text for kind, text in vec if kind == "constraint"]
-    require(len(gate) == 1 and f"at offset {row}]" in gate[0],
-            f"mock{k}: the planted failure at row {row} was not reported there: {gate}")
-    require(vec == rows, f"mock{k}: the vectorised check renders {vec} where the row loop renders {rows}")
-    return dict(k=k, rows=circ.rows, failures=0, planted_row=row,
-                planted_failures=[kind for kind, _ in vec], constraint_failure=gate[0],
-                same_text_as_row_loop=True, stages=dict(run_s=t1 - t0, verify_s=t2 - t1,
-                                                        planted_vectorized_s=t4 - t3,
-                                                        planted_row_loop_s=t5 - t4))
+    return dict(rows=circ.rows, **mock_run(dev, f"mock{k}", k, circ, bump(c_col, row), 1))
+
+
+def ecc_mock_path(dev):
+    """MockProver on the ECC and Merkle gadgets, the vectorised check on
+    `dev`: a full-width variable-base multiplication at k = 12 (a wrong cell
+    of its double-and-add rows planted), a full-width fixed-base
+    multiplication at k = 12 (a wrong cell of its incomplete additions) and
+    a Merkle path of depth 2 at k = 11 (the first layer's node and sibling
+    swapped after the cond-swap), each failing that many constraints of its
+    gate (2, 1 and the cond-swap's 2)."""
+    import random
+
+    from halo2_tpu_torch import circuits
+    from halo2_tpu_torch.fields import Fq
+
+    base, s = circuits.full_mul_inputs()
+    scalar = random.Random(7).randrange(1, Fq.MODULUS)
+    leaf, pos, path, root = circuits.merkle_inputs()
+    return {
+        "full_mul12": mock_run(dev, "full_mul12", 12, circuits.FullMulCircuit(base, base, s), bump(6, 700), 2),
+        "fixed_mul12": mock_run(dev, "fixed_mul12", 12, circuits.FixedMulCircuit(scalar), bump(4, 42), 1),
+        "merkle11": mock_run(dev, "merkle11", 11, circuits.MerkleCircuit(leaf, pos, path, root),
+                             swap_first_cond_swap, 2),
+    }
 
 
 def sync(dev):
@@ -406,7 +532,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from halo2_tpu_torch.circuits import MulCircuit, bench_circuit_for_k
+    from halo2_tpu_torch.circuits import (MulCircuit, bench_circuit_for_k, poseidon_k11, sinsemilla_k11,
+                                          sinsemilla_k14)
     from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
     from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
@@ -971,36 +1098,20 @@ def main() -> int:
 
     # ---- device time of one warm proof: the four kernels by CUDA events,
     # every kernel on the card by torch.profiler ----
-    event_log = []
     wrapped_k14 = [(ntt_cg, "cg_ntt_level"), (msm_bucket, "msm_accum"), (msm_bucket, "msm_fold"),
                    (msm_bucket, "msm_lane_reduce")]
-    originals = {name: getattr(mod, name) for mod, name in wrapped_k14}
-    for mod, name in wrapped_k14:
-        setattr(mod, name, timed(name, originals[name], event_log))
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr = Blake2bWrite(Vesta)
-            create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
-            torch.cuda.synchronize()
-            profiled_s = time.perf_counter() - t0
-    finally:
-        for mod, name in wrapped_k14:
-            setattr(mod, name, originals[name])
-    require(tr.finalize() == proof, "profiled k=14 proof bytes differ from the first")
-    proof_ms = {name: 0.0 for name in originals}
-    for name, start, end in event_log:
-        proof_ms[name] += start.elapsed_time(end)
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_symbol = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
-                     "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<"}
-    traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
-                 for name, sym in kernel_symbol.items()}
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
-    emit({"phase": "device_time_k14", "profiled_prove_s": profiled_s,
-          "device_events": len(dev_events), "device_busy_ms": busy_ms,
-          "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / warm_s,
-          "kernels_event_ms": proof_ms, "kernels_traced_ms": traced_ms})
+
+    def prove14():
+        tr = Blake2bWrite(Vesta)
+        create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        return tr.finalize()
+
+    proof_again, traced14 = traced_proof(prove14, wrapped_k14)
+    require(proof_again == proof, "profiled k=14 proof bytes differ from the first")
+    proof_ms = traced14["kernels_event_ms"]
+    busy_ms = traced14["device_busy_ms"]
+    emit({"phase": "device_time_k14", **traced14,
+          "device_busy_share_of_warm_prove": None if busy_ms is None else busy_ms / 1e3 / warm_s})
 
     # ---- two more warm k = 14 proofs on the same keys: the plain full
     # extended-domain fold (EVAL_H=full), then every msm() call on the sorted
@@ -1065,12 +1176,36 @@ def main() -> int:
     emit({"phase": "mock14", "card": smi, **mock})
 
     # ---- poseidon11: gating config 2 (the Poseidon gadget at k = 11) ----
+    k11, circ11, instances11, seed11 = poseidon_k11()
     zero_launches()
-    poseidon = poseidon_path(dev, read_launches)
+    poseidon = proof_path(dev, read_launches, read_routes, "poseidon11", k11, circ11, instances11, seed11,
+                          POSEIDON_K11_PROOF_SHA256, wrong=[[(instances11[0][0] + 1) % Fp.MODULUS]])
     launches_poseidon = poseidon["launches"]
     for name in k14_kernels:
         require(launches_poseidon[name] > 0, f"kernel {name} was not launched on the poseidon11 path")
     emit({"phase": "poseidon11", "circuit": "HashCircuit([7, 11])", "card": smi, **poseidon})
+
+    # ---- sinsemilla14: gating config 4 (the Sinsemilla hash at k = 14),
+    # with a third, traced proof; sinsemilla11: the same circuit at k = 11,
+    # to the bytes of the port's plain path on the CPU ----
+    zero_launches()
+    sinsemilla = proof_path(dev, read_launches, read_routes, "sinsemilla14", *sinsemilla_k14(),
+                            SINSEMILLA_K14_PROOF_SHA256, wrapped=wrapped_k14)
+    launches_sinsemilla = sinsemilla["launches"]
+    for name in k14_kernels:
+        require(launches_sinsemilla[name] > 0, f"kernel {name} was not launched on the sinsemilla14 path")
+    emit({"phase": "sinsemilla14", "circuit": "SinsemillaCircuit (3 words)", "card": smi, **sinsemilla})
+    zero_launches()
+    sinsemilla11 = proof_path(dev, read_launches, read_routes, "sinsemilla11", *sinsemilla_k11(),
+                              SINSEMILLA_K11_PROOF_SHA256)
+    emit({"phase": "sinsemilla11", "circuit": "SinsemillaCircuit (3 words)", "card": smi, **sinsemilla11})
+
+    # ---- ecc_mock: MockProver on the ECC and Merkle gadgets, its
+    # vectorised check on the card (no kernel of csrc/) ----
+    zero_launches()
+    ecc_mock = ecc_mock_path(dev)
+    require(not any(read_launches().values()), "ecc_mock launched a kernel")
+    emit({"phase": "ecc_mock", "card": smi, **ecc_mock})
 
     # ---- NTT=pallas: the k = 14 path with every basis change on kernel 8 ----
     pinned = vk.pinned_repr()
@@ -1189,34 +1324,20 @@ def main() -> int:
     # torch.profiler
     zero_launches()
     reset_records()
-    event_log = []
-    originals = {name: getattr(mod, name) for mod, name in wrapped_k14}
-    for mod, name in wrapped_k14:
-        setattr(mod, name, timed(name, originals[name], event_log))
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr = Blake2bWrite(Bn254G1)
-            create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
-            torch.cuda.synchronize()
-            profiled_s = time.perf_counter() - t0
-    finally:
-        for mod, name in wrapped_k14:
-            setattr(mod, name, originals[name])
-    require(tr.finalize() == proof_kzg, "profiled KZG k=14 proof bytes differ from the first")
-    kzg_proof_ms = {name: 0.0 for name in originals}
-    for name, start, end in event_log:
-        kzg_proof_ms[name] += start.elapsed_time(end)
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
-    emit({"phase": "device_time_kzg14", "profiled_prove_s": profiled_s,
-          "prove_spans": get_records(), "launches": read_launches(),
-          "device_events": len(dev_events), "device_busy_ms": busy_ms,
-          "device_busy_share_of_profiled_prove": None if busy_ms is None else busy_ms / 1e3 / profiled_s,
-          "kernels_event_ms": kzg_proof_ms,
-          "kernels_traced_ms": {name: sum(e.time_range.elapsed_us() for e in dev_events
-                                          if sym in e.name) / 1e3
-                                for name, sym in kernel_symbol.items()}})
+
+    def prove_kzg14():
+        tr = Blake2bWrite(Bn254G1)
+        create_proof(params_kzg, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        return tr.finalize()
+
+    proof_again, traced_kzg = traced_proof(prove_kzg14, wrapped_k14)
+    require(proof_again == proof_kzg, "profiled KZG k=14 proof bytes differ from the first")
+    kzg_proof_ms = traced_kzg["kernels_event_ms"]
+    busy_ms = traced_kzg["device_busy_ms"]
+    emit({"phase": "device_time_kzg14", **traced_kzg, "prove_spans": get_records(),
+          "launches": read_launches(),
+          "device_busy_share_of_profiled_prove":
+              None if busy_ms is None else busy_ms / 1e3 / traced_kzg["profiled_prove_s"]})
 
     # one GWC proof with the Keccak256 transcript: proves and verifies
     reset_records()
@@ -1572,6 +1693,7 @@ def main() -> int:
                             "ms_per_warm_kzg14_proof": kzg_proof_ms.get(name)}
                            if "bn254" in rec else {}),
                         "launches_poseidon11": launches_poseidon[name],
+                        "launches_sinsemilla14": launches_sinsemilla[name],
                         "launches_k14_msm_sorted": launches_sorted14[name]})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")

@@ -22,12 +22,20 @@ BASELINE.md's gating config 2, `tests/golden_circuits.py`),
 `SumCircuit` (`tests/test_circuit_params.py`), `DupFixedCircuit`
 (`tests/test_duplicate_commitments.py`), `MulCircuitV1`
 (`tests/test_v1_floor_planner.py`) and `MixedDegreeCircuit`
-(`tests/circuits.py`).
+(`tests/circuits.py`); and the ECC and Sinsemilla gadgets' circuits:
+`EccOpsCircuit` and `FullMulCircuit` (`tests/test_ecc_gadget.py`),
+`VarMulCircuit` (`tests/test_ecc_var_mul.py`), `FixedMulCircuit`,
+`ShortMulCircuit` and `BaseFieldMulCircuit` (`tests/test_ecc_fixed.py`),
+`SinsemillaCircuit` (`tests/test_sinsemilla_gadget.py`; `sinsemilla_k14` is
+BASELINE.md's gating config 4), `FusedCircuit`
+(`tests/test_sinsemilla_fused.py`) and `MerkleCircuit`
+(`tests/test_sinsemilla_merkle.py`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Optional, Type
 
 from .fields import FieldElement, Fp
@@ -778,3 +786,399 @@ class MixedDegreeCircuit(Circuit):
             return cells
 
         layouter.assign_region("rows", region_fn)
+
+
+# ---------------- the ECC and Sinsemilla gadgets' test circuits ----------------
+#
+# Copies of tests/test_ecc_gadget.py, test_ecc_var_mul.py, test_ecc_fixed.py,
+# test_sinsemilla_gadget.py, test_sinsemilla_fused.py and
+# test_sinsemilla_merkle.py: the same columns, regions and names, so both
+# packages' MockProver render the same failures and keygen the same keys.
+
+
+def _val(v):
+    return Value.unknown() if v is None else Value.known(v)
+
+
+class EccOpsCircuit(Circuit):
+    """Witness P, Q; check P+Q (complete & incomplete), P+P, P+(-P),
+    identity cases, and [s]P for a small scalar width."""
+
+    MUL_BITS = 8
+
+    def __init__(self, p=None, q=None, s=None):
+        self.p, self.q, self.s = p, q, s
+
+    def without_witnesses(self):
+        return type(self)()
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.ecc import EccChip
+
+        advices = [meta.advice_column() for _ in range(10)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return EccChip.configure(meta, advices)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .curves import Pallas
+        from .gadgets.ecc import EccChip
+
+        chip = EccChip(config)
+        p = chip.witness_point(layouter, _val(self.p))
+        q = chip.witness_point(layouter, _val(self.q))
+
+        # complete addition covers all cases
+        r = chip.add(layouter, p, q)
+        if self.p is not None:
+            assert r.point().force_value() == self.p + self.q
+        # doubling through the complete gate
+        d = chip.add(layouter, p, p)
+        if self.p is not None:
+            assert d.point().force_value() == self.p + self.p
+        # identity + P
+        idp = chip.witness_point(layouter, _val(Pallas.identity() if self.p is not None else None))
+        r2 = chip.add(layouter, idp, p)
+        if self.p is not None:
+            assert r2.point().force_value() == self.p
+        # incomplete addition (valid case)
+        if self.p is None or (not self.p.is_identity() and not self.q.is_identity()
+                              and self.p.xy[0] != self.q.xy[0]):
+            pi = chip.witness_point_non_id(layouter, _val(self.p))
+            qi = chip.witness_point_non_id(layouter, _val(self.q))
+            ri = chip.add_incomplete(layouter, pi, qi)
+            if self.p is not None:
+                assert ri.point().force_value() == self.p + self.q
+        # variable-base mul (small width for test speed)
+        m, _ = chip.mul(layouter, _val(self.s), p, num_bits=self.MUL_BITS)
+        if self.p is not None:
+            assert m.point().force_value() == self.p.mul(self.s)
+
+
+class FullMulCircuit(EccOpsCircuit):
+    """Full 255-bit variable-base multiplication [s]P
+    (tests/test_ecc_gadget.py::test_ecc_var_base_mul_full_width, k = 12)."""
+
+    def synthesize(self, config, layouter):
+        from .gadgets.ecc import EccChip
+
+        chip = EccChip(config)
+        p = chip.witness_point(layouter, _val(self.p))
+        m, _ = chip.mul(layouter, _val(self.s), p, num_bits=255)
+        if self.p is not None:
+            assert m.point().force_value() == self.p.mul(self.s)
+
+
+def full_mul_inputs():
+    """(base, scalar) of the full-width case: random.Random(23)."""
+    import random
+
+    from .curves import Pallas
+
+    rng = random.Random(23)
+    base = Pallas.generator().mul(rng.randrange(2, 1 << 64))
+    return base, rng.randrange(1, Pallas.SCALAR.MODULUS)
+
+
+class VarMulCircuit(Circuit):
+    """The row-optimised variable-base multiplication [alpha]T with the
+    10-bit overflow-check table loaded."""
+
+    def __init__(self, alpha=None, base=None):
+        self.alpha = alpha  # base-field int or None
+        self.base = base  # Pallas Point or None
+
+    def without_witnesses(self):
+        return VarMulCircuit(None, None)
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.ecc import EccChip
+        from .gadgets.utilities import LookupRangeCheckConfig
+
+        advices = [meta.advice_column() for _ in range(10)]
+        table = meta.lookup_table_column()
+        lookup = LookupRangeCheckConfig.configure(meta, advices[9], table, 10, Fp)
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return EccChip.configure(meta, advices, lookup_config=lookup)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .fields import Fq
+        from .gadgets.ecc import EccChip
+        from .gadgets.utilities import load_private
+
+        chip = EccChip(config)
+        config.var_mul.lookup.load(layouter)
+        base = chip.witness_point_non_id(layouter, _val(self.base))
+        alpha = load_private(layouter, config.advices[0], _val(self.alpha))
+        result, _ = chip.mul_var(layouter, alpha, base)
+        if self.alpha is not None:
+            assert result.point().force_value() == self.base.mul(self.alpha % Fq.MODULUS)
+
+
+@lru_cache(maxsize=None)
+def fixed_base(num_windows: int):
+    """The Pallas generator as a FixedPointBase with `num_windows` windows
+    (85 for full-width scalars, 22 for short ones), made once."""
+    from .curves import Pallas
+    from .gadgets.ecc_fixed import FixedPointBase
+
+    return FixedPointBase(Pallas.generator(), num_windows)
+
+
+class FixedMulCircuit(Circuit):
+    """Fixed-base multiplication by the Pallas generator; `variant` is
+    'full' (a full-width scalar), 'short' (a signed 64-bit one) or 'base' (a
+    base-field element)."""
+
+    variant = "full"
+
+    def __init__(self, scalar=None, sign=1):
+        self.scalar = scalar
+        self.sign = sign
+
+    def without_witnesses(self):
+        return type(self)()
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.ecc import EccChip
+        from .gadgets.ecc_fixed import MulFixedConfig
+        from .gadgets.utilities import LookupRangeCheckConfig
+
+        advices = [meta.advice_column() for _ in range(10)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        ecc = EccChip.configure(meta, advices)
+        lookup = None
+        if cls.variant == "base":
+            table_idx = meta.lookup_table_column()
+            lookup = LookupRangeCheckConfig.configure(meta, advices[8], table_idx, 10, Fp)
+        mf = MulFixedConfig(meta, ecc, lookup)
+        return ecc, mf
+
+    def synthesize(self, config, layouter: Layouter):
+        from .fields import Fq
+        from .gadgets.ecc import EccChip
+        from .gadgets.ecc_fixed import (NUM_WINDOWS, NUM_WINDOWS_SHORT, MulFixedBaseField,
+                                        MulFixedFullWidth, MulFixedShort)
+        from .gadgets.utilities import load_private
+
+        ecc, mf = config
+        chip = EccChip(ecc)
+        g = fixed_base(NUM_WINDOWS).generator
+        P, Q = Fp.MODULUS, Fq.MODULUS
+        val = _val(self.scalar)
+        if self.variant == "full":
+            result, _ = MulFixedFullWidth(mf, chip).assign(layouter, val, fixed_base(NUM_WINDOWS))
+            if self.scalar is not None:
+                assert result.point().force_value() == g.mul(self.scalar)
+        elif self.variant == "short":
+            magnitude = load_private(layouter, ecc.advices[0], val)
+            sign_v = (
+                Value.unknown() if self.scalar is None
+                else Value.known(1 if self.sign == 1 else P - 1)
+            )
+            sign = load_private(layouter, ecc.advices[1], sign_v)
+            result, _ = MulFixedShort(mf, chip).assign(layouter, (magnitude, sign),
+                                                       fixed_base(NUM_WINDOWS_SHORT))
+            if self.scalar is not None and self.scalar < (1 << 64):
+                expected = g.mul(self.scalar if self.sign == 1 else Q - self.scalar)
+                assert result.point().force_value() == expected
+        else:
+            mf.lookup.load(layouter)
+            alpha = load_private(layouter, ecc.advices[0], val)
+            result = MulFixedBaseField(mf, chip).assign(layouter, alpha, fixed_base(NUM_WINDOWS))
+            if self.scalar is not None:
+                assert result.point().force_value() == g.mul(self.scalar % Q)
+
+
+class ShortMulCircuit(FixedMulCircuit):
+    variant = "short"
+
+
+class BaseFieldMulCircuit(FixedMulCircuit):
+    variant = "base"
+
+
+SINSEMILLA_NUM_WORDS = 3
+SINSEMILLA_DOMAIN = "sinsemilla-gadget-test"
+SINSEMILLA_SEED = b"\x04" * 32
+
+
+class SinsemillaCircuit(Circuit):
+    """SinsemillaHashToPoint of SINSEMILLA_NUM_WORDS 10-bit words through the
+    Sinsemilla chip (10 ECC advice columns, 3 Sinsemilla advice columns, one
+    constants column, the 2^10-row generator table)."""
+
+    def __init__(self, bits=None):
+        self.bits = bits  # SINSEMILLA_NUM_WORDS * K bools or None
+
+    def without_witnesses(self):
+        return type(self)(None)
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.ecc import EccChip
+        from .gadgets.sinsemilla import SinsemillaChip
+
+        ecc_advices = [meta.advice_column() for _ in range(10)]
+        ecc_config = EccChip.configure(meta, ecc_advices)
+        sin_advices = [meta.advice_column() for _ in range(3)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return SinsemillaChip.configure(meta, sin_advices, ecc_config)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .gadgets.sinsemilla import SinsemillaChip, SinsemillaHashGadget
+        from .gadgets.sinsemilla_primitives import HashDomain
+
+        chip = SinsemillaChip(config)
+        chip.load_table(layouter)
+        domain = HashDomain(SINSEMILLA_DOMAIN)
+        gadget = SinsemillaHashGadget(chip, domain)
+        out = gadget.hash_to_point(layouter, self.bits, SINSEMILLA_NUM_WORDS)
+        if self.bits is not None:
+            assert out.point().force_value() == domain.hash_to_point(self.bits)
+
+
+def sinsemilla_bits(seed: int = 21):
+    """The message of gating config 4: SINSEMILLA_NUM_WORDS * K bits drawn
+    from random.Random(seed)."""
+    import random
+
+    from .gadgets.sinsemilla_primitives import K
+
+    rng = random.Random(seed)
+    return [bool(rng.getrandbits(1)) for _ in range(SINSEMILLA_NUM_WORDS * K)]
+
+
+def sinsemilla_k14():
+    """Gating config 4 of BASELINE.md: (k, circuit, instances, rng seed) of
+    SinsemillaCircuit at k = 14, as `tests/golden_circuits.py` proves it."""
+    return 14, SinsemillaCircuit(sinsemilla_bits()), [], SINSEMILLA_SEED
+
+
+def sinsemilla_k11():
+    """The same circuit, message and seed at k = 11, the size of the JAX
+    package's MockProver test (the generator table fills half the rows)."""
+    return 11, SinsemillaCircuit(sinsemilla_bits()), [], SINSEMILLA_SEED
+
+
+FUSED_NUM_WORDS = 30  # two pieces: 25 + 5 words
+FUSED_DOMAIN = "sinsemilla-fused-test"
+
+
+class FusedCircuit(Circuit):
+    """The fused one-row-per-word Sinsemilla chip hashing FUSED_NUM_WORDS
+    words."""
+
+    def __init__(self, bits=None):
+        self.bits = bits
+
+    def without_witnesses(self):
+        return type(self)(None)
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.sinsemilla_fused import SinsemillaFusedChip
+
+        advices = [meta.advice_column() for _ in range(5)]
+        witness_pieces = meta.advice_column()
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return SinsemillaFusedChip.configure(meta, advices, witness_pieces)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .gadgets.sinsemilla_fused import SinsemillaFusedChip
+        from .gadgets.sinsemilla_primitives import HashDomain
+
+        chip = SinsemillaFusedChip(config)
+        chip.load_table(layouter)
+        domain = HashDomain(FUSED_DOMAIN)
+        pieces = chip.witness_message(layouter, self.bits, FUSED_NUM_WORDS)
+        out = chip.hash_to_point(layouter, domain.Q, pieces)
+        if self.bits is not None:
+            expected = domain.hash_to_point(self.bits)
+            got = out.point().force_value()
+            assert got == expected, (got, expected)
+
+
+MERKLE_DEPTH = 2
+
+
+def merkle_host_root(leaf: int, pos: int, path) -> int:
+    """The Merkle root of `leaf` at position `pos` under the sibling `path`,
+    by MerkleCRH on the host."""
+    from .gadgets.sinsemilla_merkle import merkle_crh, merkle_crh_domain
+
+    domain = merkle_crh_domain()
+    node = leaf
+    for l, sibling in enumerate(path):
+        bit = (pos >> l) & 1
+        left, right = (sibling, node) if bit else (node, sibling)
+        node = merkle_crh(domain, l, left, right)
+    return node
+
+
+def merkle_inputs():
+    """(leaf, pos, path, root) of the depth-2 Merkle case: random.Random(21)."""
+    import random
+
+    rng = random.Random(21)
+    leaf = rng.randrange(Fp.MODULUS)
+    path = [rng.randrange(Fp.MODULUS) for _ in range(MERKLE_DEPTH)]
+    pos = rng.randrange(1 << MERKLE_DEPTH)
+    return leaf, pos, path, merkle_host_root(leaf, pos, path)
+
+
+class MerkleCircuit(Circuit):
+    """A Merkle path of depth MERKLE_DEPTH: MerkleCRH (Sinsemilla) per layer,
+    the cond-swap of the node and its sibling, and the 10-bit lookup range
+    checks on the generator table's index column."""
+
+    def __init__(self, leaf=None, pos=None, path=None, expected_root=None):
+        self.leaf = leaf
+        self.pos = pos
+        self.path = path or [None] * MERKLE_DEPTH
+        self.expected_root = expected_root
+
+    def without_witnesses(self):
+        return type(self)()
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.ecc import EccChip
+        from .gadgets.sinsemilla import SinsemillaChip
+        from .gadgets.sinsemilla_merkle import MerkleChip
+        from .gadgets.sinsemilla_primitives import K
+        from .gadgets.utilities import LookupRangeCheckConfig
+
+        ecc_advices = [meta.advice_column() for _ in range(10)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        ecc = EccChip.configure(meta, ecc_advices)
+        sin_advices = [meta.advice_column() for _ in range(3)]
+        sin = SinsemillaChip.configure(meta, sin_advices, ecc)
+        # 10-bit lookup range check sharing the generator index table
+        lookup_col = meta.advice_column()
+        lookup = LookupRangeCheckConfig.configure(meta, lookup_col, sin.table_idx, K, Fp)
+        merkle_advices = [meta.advice_column() for _ in range(5)]
+        return MerkleChip.configure(meta, merkle_advices, sin, lookup)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .gadgets.poseidon import _as_int
+        from .gadgets.sinsemilla_merkle import MerkleChip, MerklePath, merkle_crh_domain
+        from .gadgets.utilities import load_private
+
+        chip = MerkleChip(config)
+        chip.sinsemilla.load_table(layouter)
+        leaf = load_private(layouter, config.advices[0], _val(self.leaf))
+        path = MerklePath(chip, merkle_crh_domain(), self.pos, self.path)
+        root = path.calculate_root(layouter, leaf)
+        if self.expected_root is not None:
+            rv = root.value()
+            assert not rv.is_none()
+            assert _as_int(rv.force_value(), Fp.MODULUS) == self.expected_root % Fp.MODULUS

@@ -32,6 +32,9 @@ def test_importing_every_port_module_loads_no_jax():
             "halo2_tpu_torch.tools.profile_kernels"} <= set(mods)
     assert {"halo2_tpu_torch.dev.mock_prover", "halo2_tpu_torch.plonk.batch",
             "halo2_tpu_torch.gadgets.poseidon"} <= set(mods)
+    assert {f"halo2_tpu_torch.gadgets.{m}" for m in (
+        "ecc", "ecc_mul", "ecc_fixed", "ecc_api", "sinsemilla_primitives", "sinsemilla",
+        "sinsemilla_fused", "sinsemilla_merkle")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

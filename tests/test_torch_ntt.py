@@ -12,7 +12,20 @@ exact on canonical values. The plain level's contract (strided load of the
 placement) is held to the composition the first port ran in torch around
 the level (transpose, level, rev gather). The kernel itself is held against
 the plain version, bit for bit, by the `gpu` test below and by chip_smoke.py.
+
+The JAX package's values are pinned as sha256 of their canonical integers in
+tests/fixtures_torch_jax_refs.json (section "ntt"), written once on the CPU
+with
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_ntt.py pin
+
+since XLA takes minutes to compile them; the `slow` twins recompute them.
 """
+
+import hashlib
+import json
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +41,8 @@ from halo2_tpu.poly.domain import EvaluationDomain as JDomain
 from halo2_tpu_torch.fields import Fq
 from halo2_tpu_torch.interop import fvec, limbs_tensor
 from halo2_tpu_torch.ops import ntt_cg
-from halo2_tpu_torch.ops.field import FieldCtx, add_mod, from_mont, ints_to_limbs, mont_mul, sub_mod
+from halo2_tpu_torch.ops.field import (FieldCtx, add_mod, from_mont, ints_to_limbs, limbs_to_ints, mont_mul,
+                                       sub_mod)
 from halo2_tpu_torch.ops.ntt import NttPlan, bitrev_perm
 from halo2_tpu_torch.ops.ntt_cg import CgNttPlan, _cg_stage_tables
 from halo2_tpu_torch.poly import COEFF, LAGRANGE, Polynomial
@@ -52,6 +66,30 @@ def canon_t(x) -> np.ndarray:
     return from_mont(x, FieldCtx(Fq)).numpy().astype(np.int64)
 
 
+REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures_torch_jax_refs.json")
+
+
+def digest(canon: np.ndarray) -> str:
+    """sha256 of canonical (n, 16) limbs, as the decimal integers they hold."""
+    return hashlib.sha256(repr(limbs_to_ints(np.asarray(canon))).encode()).hexdigest()
+
+
+def pinned(name: str) -> str:
+    with open(REFS) as f:
+        return json.load(f)["ntt"][name]
+
+
+def write_pins(section: str, pins: dict):
+    refs = {}
+    if os.path.exists(REFS):
+        with open(REFS) as f:
+            refs = json.load(f)
+    refs[section] = pins
+    with open(REFS, "w") as f:
+        json.dump(refs, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def test_cg_stage_tables_invariant():
     p = Fq.MODULUS
     for log_f in (1, 3, 5, 8):
@@ -62,19 +100,32 @@ def test_cg_stage_tables_invariant():
         assert sorted(int(v) for v in rev) == list(range(f))
 
 
-@pytest.mark.parametrize("k,max_log_f", [(3, 2), (6, 3), (7, 3), (11, 3)])
+CG_PLAN_CASES = [(3, 2), (6, 3), (7, 3), (11, 3)]
+
+
+def _jax_cg_plan(k: int) -> str:
+    omega = pow(JFq.ROOT_OF_UNITY, 1 << (JFq.S - k), JFq.MODULUS)
+    return digest(canon_j(JNttPlan(JFq, k, omega)(jnp.asarray(mont_input(1 << k, seed=k)))))
+
+
+@pytest.mark.parametrize("k,max_log_f", CG_PLAN_CASES)
 def test_cg_plan_matches_jax(k, max_log_f, monkeypatch):
     p = Fq.MODULUS
     omega = pow(Fq.ROOT_OF_UNITY, 1 << (Fq.S - k), p)
     a = mont_input(1 << k, seed=k)
-    want = JNttPlan(JFq, k, omega)(jnp.asarray(a))
     monkeypatch.setattr(CgNttPlan, "MAX_LOG_F", max_log_f)
     plan = CgNttPlan(Fq, k, omega)
     assert len(plan.levels) == -(-k // max_log_f)
-    got = plan(limbs_tensor(a))
-    assert (canon_t(got) == canon_j(want)).all()
+    got = canon_t(plan(limbs_tensor(a)))
+    assert digest(got) == pinned(f"cg_plan/{k}")
     # the port's radix-2 whole-transform reference agrees too
-    assert (canon_t(NttPlan(Fq, k, omega)(limbs_tensor(a))) == canon_j(want)).all()
+    assert (canon_t(NttPlan(Fq, k, omega)(limbs_tensor(a))) == got).all()
+
+
+@pytest.mark.slow  # XLA compiles the JAX package's radix-2 plan
+@pytest.mark.parametrize("k", [k for k, _ in CG_PLAN_CASES])
+def test_cg_plan_pin_recomputed_from_jax(k):
+    assert _jax_cg_plan(k) == pinned(f"cg_plan/{k}")
 
 
 def test_inverse_plan_inverts():
@@ -149,34 +200,48 @@ def _domains(k=5, j=4):
     return JDomain(JFq, j, k), EvaluationDomain(Fq, j, k, "cpu")
 
 
+def _domain_stages(d, poly, vec, lagrange, coeff):
+    """The values of every transform of domain `d` on the seeded input:
+    lagrange_to_coeff, coeff_to_extended, each extended part,
+    extended_to_coeff, lagrange_vecs_to_extended, divide_by_vanishing_poly."""
+    a = mont_input(d.n, seed=21)
+    c = d.lagrange_to_coeff(poly(lagrange, vec(a)))
+    assert c.basis == coeff
+    e = d.coeff_to_extended(c)
+    assert e.vec.vals.shape[0] == d.extended_n
+    parts = d.coeff_to_extended_parts(c)
+    yield "lagrange_to_coeff", c.vec.vals
+    yield "coeff_to_extended", e.vec.vals
+    for i, part in enumerate(parts):
+        yield f"coeff_to_extended_parts/{i}", part.vec.vals
+    yield "extended_to_coeff", d.extended_to_coeff(e).vals
+    yield "lagrange_vecs_to_extended", d.lagrange_vecs_to_extended([parts[:1], parts[:2]]).vec.vals
+    yield "divide_by_vanishing_poly", d.divide_by_vanishing_poly(e).vec.vals
+
+
+def _jax_domain_stages() -> dict:
+    jd, _ = _domains()
+    return {name: digest(canon_j(v))
+            for name, v in _domain_stages(jd, JPolynomial, lambda a: JFVec(JFq, jnp.asarray(a)), J_LAGRANGE,
+                                          J_COEFF)}
+
+
 def test_domain_transforms_match_jax():
     jd, td = _domains()
-    a = mont_input(jd.n, seed=21)
-    jl = JPolynomial(J_LAGRANGE, JFVec(JFq, jnp.asarray(a)))
-    tl = Polynomial(LAGRANGE, fvec("Fq", a))
+    got = {name: digest(canon_t(v))
+           for name, v in _domain_stages(td, Polynomial, lambda a: fvec("Fq", a), LAGRANGE, COEFF)}
+    want = {name[len("domain/"):]: v for name, v in json.load(open(REFS))["ntt"].items()
+            if name.startswith("domain/")}
+    assert len(want) == 5 + (jd.extended_n // jd.n)
+    assert got == want
+    assert td.extended_n == jd.extended_n
 
-    jc, tc = jd.lagrange_to_coeff(jl), td.lagrange_to_coeff(tl)
-    assert tc.basis == COEFF and jc.basis == J_COEFF
-    assert (canon_t(tc.vec.vals) == canon_j(jc.vec.vals)).all()
 
-    je, te = jd.coeff_to_extended(jc), td.coeff_to_extended(tc)
-    assert te.vec.vals.shape[0] == jd.extended_n
-    assert (canon_t(te.vec.vals) == canon_j(je.vec.vals)).all()
-
-    jparts, tparts = jd.coeff_to_extended_parts(jc), td.coeff_to_extended_parts(tc)
-    assert len(tparts) == len(jparts)
-    for jp, tp in zip(jparts, tparts):
-        assert (canon_t(tp.vec.vals) == canon_j(jp.vec.vals)).all()
-
-    jback, tback = jd.extended_to_coeff(je), td.extended_to_coeff(te)
-    assert (canon_t(tback.vals) == canon_j(jback.vals)).all()
-
-    jm = jd.lagrange_vecs_to_extended([jparts[:1], jparts[:2]])
-    tm = td.lagrange_vecs_to_extended([tparts[:1], tparts[:2]])
-    assert (canon_t(tm.vec.vals) == canon_j(jm.vec.vals)).all()
-
-    jv, tv = jd.divide_by_vanishing_poly(je), td.divide_by_vanishing_poly(te)
-    assert (canon_t(tv.vec.vals) == canon_j(jv.vec.vals)).all()
+@pytest.mark.slow  # XLA compiles the JAX package's domain transforms
+def test_domain_transforms_pins_recomputed_from_jax():
+    want = {name[len("domain/"):]: v for name, v in json.load(open(REFS))["ntt"].items()
+            if name.startswith("domain/")}
+    assert _jax_domain_stages() == want
 
 
 def edge_input(n: int, seed: int) -> np.ndarray:
@@ -211,3 +276,10 @@ def test_cg_level_kernel_matches_plain_on_card():
             # the whole transform: natural order, the radix-2 reference's values
             a = torch.as_tensor(edge_input(n, seed=log_n), device="cuda")
             assert torch.equal(from_mont(plan(a), ctx), from_mont(NttPlan(Fq, log_n, omega)(a), ctx))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["pin"]:
+    pins = {f"cg_plan/{k}": _jax_cg_plan(k) for k, _ in CG_PLAN_CASES}
+    pins.update({f"domain/{name}": v for name, v in _jax_domain_stages().items()})
+    write_pins("ntt", pins)
+    print("wrote", REFS)

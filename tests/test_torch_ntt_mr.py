@@ -11,8 +11,17 @@ holds, and whole transforms must equal the JAX radix-2 `NttPlan` and, in a
 subprocess, `PallasNttPlan` itself in interpret mode. Comparisons are exact
 on canonical values. The kernel is held against the plain version on the
 card, bit for bit, by the `gpu` tests below and by chip_smoke.py.
+
+The JAX package's values are pinned as sha256 of their canonical integers in
+tests/fixtures_torch_jax_refs.json (section "ntt_mr"), written once on the
+CPU with
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_ntt_mr.py pin
+
+since XLA takes minutes to compile them; the `slow` twins recompute them.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -61,6 +70,19 @@ def canon_t(x, field) -> list:
 
 def canon_j(x, jfield) -> list:
     return limbs_to_ints(np.asarray(field_jax.FieldCtx(jfield).from_mont(jnp.asarray(x).reshape(-1, 16))))
+
+
+REFS = os.path.join(ROOT, "tests", "fixtures_torch_jax_refs.json")
+
+
+def digest(vals: list) -> str:
+    """sha256 of canonical values, as decimal integers."""
+    return hashlib.sha256(repr([int(v) for v in vals]).encode()).hexdigest()
+
+
+def pinned(name: str) -> str:
+    with open(REFS) as f:
+        return json.load(f)["ntt_mr"][name]
 
 
 @pytest.mark.parametrize("name,k", [("Fq", 4), ("Fp", 10), ("FrBn", 12), ("Fp", 17)])
@@ -125,24 +147,41 @@ def _jax_level_on_view(x, lv, jfield):
     return jax.jit(_jax_level, static_argnums=4)(cols, stw, perm, inter, jfield)
 
 
-@pytest.mark.parametrize("name,k,level", [("Fq", 10, 0), ("FrBn", 10, 1)])
+LEVEL_CASES = [("Fq", 10, 0), ("FrBn", 10, 1)]
+
+
+def _level_case(name, k, level):
+    lv = MrNttPlan(field_of(name), k, omega_for(field_of(name), k)).levels[level]
+    B = (1 << k) // (lv["f"] * lv["g"])
+    return lv, B, mont_input((1 << k), seed=k + level).reshape(B, lv["f"], lv["g"], 16)
+
+
+def _jax_level_digest(name, k, level) -> str:
+    lv, _, x = _level_case(name, k, level)
+    return digest(canon_j(_jax_level_on_view(x, lv, JFIELDS[name]), JFIELDS[name]))
+
+
+@pytest.mark.parametrize("name,k,level", LEVEL_CASES)
 def test_level_plain_matches_jax_field_ops(name, k, level):
     """Level 0 of 2^10 is (B, f, g) = (1, 256, 4); level 1, the last, is
     (256, 4, 1) with perm."""
     jfield = JFIELDS[name]
     field = field_of(name)
     jlv = JPallasNttPlan(jfield, k, omega_for(jfield, k)).levels[level]
-    lv = MrNttPlan(field, k, omega_for(field, k)).levels[level]
+    lv, B, x = _level_case(name, k, level)
     f, g = lv["f"], lv["g"]
     assert (jlv["f"], jlv["g"]) == (f, g)
-    B = (1 << k) // (f * g)
-    x = mont_input((1 << k), seed=k + level).reshape(B, f, g, 16)
-    want = _jax_level_on_view(x, lv, jfield)
     inter = None if lv["inter"] is None else torch.as_tensor(lv["inter"])
     perm = None if lv["perm"] is None else torch.as_tensor(lv["perm"])
     got = ntt_mr.mr_col_ntt(limbs_tensor(x), torch.as_tensor(lv["stw"]), inter, FieldCtx(field), perm)
     assert got.shape == ((f, B, 16) if perm is not None else x.shape)
-    assert canon_t(_columns(got, B, f, g, lv["perm"]), field) == canon_j(want, jfield)
+    assert digest(canon_t(_columns(got, B, f, g, lv["perm"]), field)) == pinned(f"level/{name}-{k}-{level}")
+
+
+@pytest.mark.slow  # XLA compiles the JAX package's field ops
+@pytest.mark.parametrize("name,k,level", LEVEL_CASES)
+def test_level_pin_recomputed_from_jax(name, k, level):
+    assert _jax_level_digest(name, k, level) == pinned(f"level/{name}-{k}-{level}")
 
 
 def test_level_contract_with_batch_and_period(monkeypatch):
@@ -152,8 +191,7 @@ def test_level_contract_with_batch_and_period(monkeypatch):
     level's perm is the digit reversal, and the levels chained in the
     contract give the radix-2 transform, bit for bit the plan's."""
     monkeypatch.setattr(MrNttPlan, "MAX_LOG_F", 2)
-    name, k = "Fp", 6
-    jfield, field = JFIELDS[name], field_of(name)
+    field, k = field_of("Fp"), 6
     ctx = FieldCtx(field)
     omega = omega_for(field, k)
     plan = MrNttPlan(field, k, omega)
@@ -169,24 +207,60 @@ def test_level_contract_with_batch_and_period(monkeypatch):
         perm = None if lv["perm"] is None else torch.as_tensor(lv["perm"])
         y = ntt_mr.mr_col_ntt(x, torch.as_tensor(lv["stw"]), inter, ctx, perm)
         if li == 1:
-            want = _jax_level_on_view(x.numpy().astype(np.uint32), lv, jfield)
-            assert canon_t(_columns(y, B, f, g, None), field) == canon_j(want, jfield)
+            assert digest(canon_t(_columns(y, B, f, g, None), field)) == pinned("contract_middle_level")
     assert canon_t(y, field) == canon_t(NttPlan(field, k, omega)(a), field)
     assert torch.equal(y.reshape(-1, 16), plan(a))
 
 
-@pytest.mark.parametrize("k", [4, 9, 12])
-@pytest.mark.parametrize("name", ["Fq", "Fp", "FrBn"])
-def test_mr_plan_matches_jax_radix2(name, k):
+def _jax_contract_middle_level() -> str:
+    """The JAX field ops' level 1 of test_level_contract_with_batch_and_period
+    on the columns its view holds (its input: the port's level 0 output)."""
+    field, jfield, k = field_of("Fp"), JFIELDS["Fp"], 6
+    MrNttPlan.MAX_LOG_F, saved = 2, MrNttPlan.MAX_LOG_F
+    try:
+        levels = MrNttPlan(field, k, omega_for(field, k)).levels
+    finally:
+        MrNttPlan.MAX_LOG_F = saved
+    lv0, lv1 = levels[0], levels[1]
+    x0 = limbs_tensor(mont_input(1 << k, seed=6)).reshape(1, lv0["f"], lv0["g"], 16)
+    y0 = ntt_mr.mr_col_ntt(x0, torch.as_tensor(lv0["stw"]), torch.as_tensor(lv0["inter"]),
+                           FieldCtx(field), None)
+    x1 = y0.reshape(-1, lv1["f"], lv1["g"], 16).numpy().astype(np.uint32)
+    return digest(canon_j(_jax_level_on_view(x1, lv1, jfield), jfield))
+
+
+@pytest.mark.slow  # XLA compiles the JAX package's field ops
+def test_contract_middle_level_pin_recomputed_from_jax():
+    assert _jax_contract_middle_level() == pinned("contract_middle_level")
+
+
+RADIX2_KS = [4, 9, 12]
+RADIX2_FIELDS = ["Fq", "Fp", "FrBn"]
+
+
+def _jax_radix2(name, k) -> str:
     jfield = JFIELDS[name]
-    field = field_of(name)
-    a = mont_input(1 << k, seed=100 + k)
-    got = MrNttPlan(field, k, omega_for(field, k))(limbs_tensor(a))
     # eagerly: the per-op programs are shared by all three fields, where a
     # jit of the whole plan compiles anew for each
     with jax.disable_jit():
-        want = JNttPlan(jfield, k, omega_for(jfield, k))(jnp.asarray(a))
-    assert canon_t(got, field) == canon_j(want, jfield)
+        want = JNttPlan(jfield, k, omega_for(jfield, k))(jnp.asarray(mont_input(1 << k, seed=100 + k)))
+    return digest(canon_j(want, jfield))
+
+
+@pytest.mark.parametrize("k", RADIX2_KS)
+@pytest.mark.parametrize("name", RADIX2_FIELDS)
+def test_mr_plan_matches_jax_radix2(name, k):
+    field = field_of(name)
+    a = mont_input(1 << k, seed=100 + k)
+    got = MrNttPlan(field, k, omega_for(field, k))(limbs_tensor(a))
+    assert digest(canon_t(got, field)) == pinned(f"radix2/{name}-{k}")
+
+
+@pytest.mark.slow  # XLA compiles the JAX package's radix-2 plan
+@pytest.mark.parametrize("k", RADIX2_KS)
+@pytest.mark.parametrize("name", RADIX2_FIELDS)
+def test_radix2_pin_recomputed_from_jax(name, k):
+    assert _jax_radix2(name, k) == pinned(f"radix2/{name}-{k}")
 
 
 def test_mr_plan_second_factor_above_2_8(monkeypatch):
@@ -230,21 +304,30 @@ _PALLAS_SNIPPET = textwrap.dedent(
 )
 
 
-def test_mr_plan_matches_pallas_interpret():
+def _jax_pallas_interpret() -> str:
     """The JAX package's PallasNttPlan itself (interpret mode, its CPU mode)
     at k = 4, in a fresh process as tests/test_ntt_pallas.py runs it."""
-    k = 4
-    a = mont_input(1 << k, seed=44)
+    a = mont_input(1 << 4, seed=44)
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
-    res = subprocess.run([sys.executable, "-c", _PALLAS_SNIPPET.format(repo=ROOT, k=k)],
+    res = subprocess.run([sys.executable, "-c", _PALLAS_SNIPPET.format(repo=ROOT, k=4)],
                          input=json.dumps(a.tolist()), capture_output=True, text=True,
                          timeout=600, env=env)
     assert res.returncode == 0, res.stderr[-2000:]
-    want = [int(v) for v in json.loads(res.stdout.strip().splitlines()[-1])]
+    return digest(json.loads(res.stdout.strip().splitlines()[-1]))
+
+
+def test_mr_plan_matches_pallas_interpret():
+    k = 4
+    a = mont_input(1 << k, seed=44)
     field = field_of("Fq")
     got = MrNttPlan(field, k, omega_for(field, k))(limbs_tensor(a))
-    assert canon_t(got, field) == want
+    assert digest(canon_t(got, field)) == pinned("pallas_interpret/Fq-4")
+
+
+@pytest.mark.slow  # a JAX process that runs PallasNttPlan in interpret mode
+def test_pallas_interpret_pin_recomputed_from_jax():
+    assert _jax_pallas_interpret() == pinned("pallas_interpret/Fq-4")
 
 
 @pytest.mark.parametrize("value,cls", [(None, CgNttPlan), ("auto", CgNttPlan), ("cg", CgNttPlan),
@@ -311,3 +394,14 @@ def test_pallas_transform_equals_cg_transform_on_card():
     got = MrNttPlan(field, 14, omega)(a)
     want = CgNttPlan(field, 14, omega)(a)
     assert torch.equal(from_mont(got, ctx), from_mont(want, ctx))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["pin"]:
+    from test_torch_ntt import write_pins
+
+    pins = {f"level/{n}-{k}-{lv}": _jax_level_digest(n, k, lv) for n, k, lv in LEVEL_CASES}
+    pins["contract_middle_level"] = _jax_contract_middle_level()
+    pins.update({f"radix2/{n}-{k}": _jax_radix2(n, k) for n in RADIX2_FIELDS for k in RADIX2_KS})
+    pins["pallas_interpret/Fq-4"] = _jax_pallas_interpret()
+    write_pins("ntt_mr", pins)
+    print("wrote", REFS)
