@@ -49,6 +49,23 @@ counters set to 0 just before it and read just after:
   (SINSEMILLA_K14_PROOF_SHA256); a flipped byte fails to verify. Kernels 1-4
   run. sinsemilla11: the same circuit and seeds at k = 11, to the bytes the
   port's plain path gives on the CPU (SINSEMILLA_K11_PROOF_SHA256).
+* mesh14: the k = 14 proof again on the same keys under `parallel.use_mesh`
+  over four shards (four cards where the machine has four, else four logical
+  shards of the one card): the pinned bytes, verified; the four-step NTT, the
+  sharded MSM and the row-sharded quotient fold (`evaluate_h_mesh`) each
+  taken at least once (`parallel.context.CALLS`), kernels 1-4 launched.
+* sha256_k17: the SHA-256 gadget (Table16, the 2^16-row spread table) over
+  the 14 blocks of an 887-byte message at k = 17, extended 2^20
+  (circuits.sha256_k17): params -> keygen -> one proof -> verify, to the bytes
+  of the card's first proof (SHA256_K17_PROOF_SHA256) and, where
+  tests/fixtures_torch_sha256.json holds it, the JAX package's VK transcript
+  repr; a flipped byte fails to verify. Kernels 1-7 run (the σ commits, the
+  vanishing argument's random commit and the verifier's MSM take the sorted
+  MSM).
+* sha256_mock: MockProver on one SHA-256 block (b"abc") at k = 17, the
+  vectorised check on the card: no failure; the JAX test's planted cell (the
+  first dense cell that is not 0 or 1, plus one) reported as its lookup's
+  failure at its row, rendered as the row loop renders it.
 * ecc_mock: MockProver on the ECC and Merkle gadgets, its vectorised check
   on the card: full-width variable-base and fixed-base multiplications at
   k = 12, a depth-2 Merkle path at k = 11; no failure, and a planted wrong
@@ -100,6 +117,12 @@ counters set to 0 just before it and read just after:
   cycles of one field operation on one thread, and the card's measured rate
   of 32-bit multiply instructions (mad.lo, mad.hi, their carry-chained
   forms, mad.wide.u32) beside the rate the bounds assume.
+
+* mesh_ops: the mesh's operations at gating config 5's sizes on four
+  logical shards of the card: FourStepNtt at 2^20 against the one-device
+  kernel-1 plan (equal canonical values), and sharded_msm of 2^20 points (the
+  k = 16 generators tiled 16 times) against the one-device msm(), both timed
+  by CUDA events.
 
 Each kernel is timed twice: `ms`, the median CUDA-event time of one call
 (host launch included), and `device_ms`, the CUDA-event time per call of ten
@@ -157,6 +180,12 @@ POSEIDON_K11_PROOF_SHA256 = "23e86128f8ff13e45491b2d503d84b2240e3946cc0c0239a9d6
 # the CPU) is the cross-package check, not yet made.
 SINSEMILLA_K11_PROOF_SHA256 = "b8ba0577e970f481f0b1c4cbb7affaab5eb6f2f4788ba6251075a7c80420152f"
 SINSEMILLA_K14_PROOF_SHA256 = "b6f17028fe899840f594d8b4a08d8983bb5912124c9de98bc199569a86fcd052"
+# The SHA-256 gadget at k = 17 (circuits.sha256_k17: 14 blocks of an
+# 887-byte message from random.Random(17), ChaCha20Rng(b"\x05" * 32)): the
+# sha256 of the card's first proof. The JAX package's proof at k = 17 is out
+# of reach on the CPU; its VK's transcript repr is checked where
+# tests/fixtures_torch_sha256.json holds it.
+SHA256_K17_PROOF_SHA256 = "1d2de4163bd23c4eb44c0bf1a8c7e9273242375470d32387279eaa532fb94cc9"
 
 # Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
 # work the assumed peak is 64 32-bit multiply instructions per clock per SM
@@ -339,12 +368,14 @@ def environ(**values):
 
 
 def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, pinned, wrong=None,
-               wrapped=()):
+               wrapped=(), warm=True, vk_repr=None):
     """A gating config through the entry points: ParamsIPA.cached(Vesta, k)
-    -> keygen_vk -> keygen_pk -> create_proof (Blake2b; a first and a warm
-    proof, and with `wrapped` kernels a third, traced by traced_proof) ->
-    verify_proof. The proof must have the `pinned` sha256, verify, and fail
-    to verify with a flipped byte or with the `wrong` instances."""
+    -> keygen_vk -> keygen_pk -> create_proof (Blake2b; a first proof, with
+    `warm` a warm one, and with `wrapped` kernels a third, traced by
+    traced_proof) -> verify_proof. The VK must have the transcript repr
+    `vk_repr` where one is given; the proof must have the `pinned` sha256,
+    verify, and fail to verify with a flipped byte or with the `wrong`
+    instances."""
     from halo2_tpu_torch.curves import Vesta
     from halo2_tpu_torch.plonk.error import OpeningError
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
@@ -364,8 +395,10 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
     sync(dev)
     t2 = time.perf_counter()
     marks["keygen"], routes["keygen"] = read_launches(), read_routes()
+    if vk_repr is not None:
+        require(hex(vk.transcript_repr) == vk_repr, f"{tag}: the VK's transcript repr differs from the pin")
     proofs, prove_s, spans, totals = [], [], [], []
-    for _ in range(2):  # the first proof, then a warm one
+    for _ in range(2 if warm else 1):  # the first proof, then a warm one
         reset_records()
         t3 = time.perf_counter()
         tr = Blake2bWrite(Vesta)
@@ -377,7 +410,7 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
         totals.append(get_totals())
         marks[f"prove_{len(proofs)}"], routes[f"prove_{len(proofs)}"] = read_launches(), read_routes()
     proof = proofs[0]
-    require(proofs[1] == proof, f"{tag}: the warm proof's bytes differ from the first")
+    require(proofs[-1] == proof, f"{tag}: the warm proof's bytes differ from the first")
     traced = None
     if wrapped:
         def prove():
@@ -388,7 +421,7 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
         proof_again, traced = traced_proof(prove, wrapped)
         require(proof_again == proof, f"{tag}: the traced proof's bytes differ from the first")
         busy_ms = traced["device_busy_ms"]
-        traced["device_busy_share_of_warm_prove"] = None if busy_ms is None else busy_ms / 1e3 / prove_s[1]
+        traced["device_busy_share_of_warm_prove"] = None if busy_ms is None else busy_ms / 1e3 / prove_s[-1]
         marks["prove_traced"], routes["prove_traced"] = read_launches(), read_routes()
     t4 = time.perf_counter()
     ok = verify_proof(params, vk, [instances], Blake2bRead(Vesta, proof))
@@ -413,19 +446,20 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
         by_stage[stage] = {name: c - prev.get(name, 0) for name, c in counts.items()}
         prev = counts
     return dict(k=k, extended_k=vk.domain.extended_k, proof_bytes=len(proof), pinned_sha256=True,
+                vk_repr_pinned=vk_repr is not None,
                 verified=True, flipped_byte_rejected=True, wrong_instances_rejected=wrong is not None,
                 stages=dict(params_read_s=t1 - t0, keygen_s=t2 - t1, prove_first_s=prove_s[0],
-                            prove_warm_s=prove_s[1], verify_s=t5 - t4),
-                prove_spans_first=spans[0], prove_spans_warm=spans[1], totals_first=totals[0],
-                totals_warm=totals[1],
+                            prove_warm_s=prove_s[1] if warm else None, verify_s=t5 - t4),
+                prove_spans_first=spans[0], prove_spans_warm=spans[1] if warm else None,
+                totals_first=totals[0], totals_warm=totals[1] if warm else None,
                 launches=marks["verify"], launches_by_stage=by_stage, routes_by_stage=routes,
                 traced_warm=traced)
 
 
-def planted_failure(prover, tag: str, plant, constraints: int):
+def planted_failure(prover, tag: str, plant, constraints: int, kind: str = "constraint"):
     """`plant(prover, advice)` changes cells of `advice`, a copy of the
     prover's witness, and returns the row it planted at. The copy's
-    vectorised check must report `constraints` constraint failures, all at
+    vectorised check must report `constraints` failures of `kind`, all at
     that row (in its region, at its offset), and render every failure as
     the row loop does, character for character."""
     import copy
@@ -442,11 +476,11 @@ def planted_failure(prover, tag: str, plant, constraints: int):
     rows = [(f.kind, str(f)) for f in bad.verify(vectorized=False)]
     t2 = time.perf_counter()
     where = f"[{FailureLocation.find(prover.regions, row)}]"
-    gate = [text for kind, text in vec if kind == "constraint"]
+    gate = [text for k, text in vec if k == kind]
     require(len(gate) == constraints and all(where in text for text in gate),
             f"{tag}: the planted failure at row {row} was not reported {where} {constraints} times: {gate}")
     require(vec == rows, f"{tag}: the vectorised check renders {vec} where the row loop renders {rows}")
-    return dict(planted_row=row, planted_failures=[kind for kind, _ in vec], constraint_failure=gate[0],
+    return dict(planted_row=row, planted_failures=[k for k, _ in vec], **{f"{kind}_failure": gate[0]},
                 same_text_as_row_loop=True, planted_vectorized_s=t1 - t0, planted_row_loop_s=t2 - t1)
 
 
@@ -472,7 +506,7 @@ def swap_first_cond_swap(prover, advice):
     return row
 
 
-def mock_run(dev, tag: str, k: int, circ, plant, constraints: int):
+def mock_run(dev, tag: str, k: int, circ, plant, constraints: int, kind: str = "constraint"):
     """MockProver on `circ` at 2^k rows, its vectorised check on `dev`: no
     failure; then `plant` on a copy of the witness (planted_failure)."""
     from halo2_tpu_torch.dev.mock_prover import MockProver
@@ -484,7 +518,7 @@ def mock_run(dev, tag: str, k: int, circ, plant, constraints: int):
     sync(dev)
     t2 = time.perf_counter()
     require(failures == [], f"{tag}: failed: {[str(f) for f in failures[:3]]}")
-    return dict(k=k, failures=0, **planted_failure(prover, tag, plant, constraints),
+    return dict(k=k, failures=0, **planted_failure(prover, tag, plant, constraints, kind),
                 stages=dict(run_s=t1 - t0, verify_s=t2 - t1))
 
 
@@ -496,6 +530,26 @@ def mock_path(dev, k: int, row: int):
     circ = bench_circuit_for_k(k)
     c_col = 2  # BenchCircuit's advice columns a, b, c
     return dict(rows=circ.rows, **mock_run(dev, f"mock{k}", k, circ, bump(c_col, row), 1))
+
+
+def bump_first_wide_dense(prover, advice):
+    """The JAX package's SHA-256 plant (tests/test_sha256_gadget.py:101-105):
+    the first assigned cell of advice column 0 (the dense column) that is not
+    0 or 1, plus one."""
+    for row, v in enumerate(advice[0]):
+        if isinstance(v, tuple) and v[0] == "assigned" and v[1] not in (0, 1):
+            advice[0][row] = ("assigned", (v[1] + 1) % prover.p)
+            return row
+    raise AssertionError("sha256_mock: no dense cell to plant at")
+
+
+def sha256_mock_path(dev):
+    """MockProver on one SHA-256 block (b"abc") at k = 17, the vectorised
+    check on `dev`: no failure; the planted dense cell fails its spread
+    lookup at its row (and the copies that read it)."""
+    from halo2_tpu_torch.circuits import ShaCircuit
+
+    return mock_run(dev, "sha256_mock", 17, ShaCircuit(b"abc"), bump_first_wide_dense, 1, "lookup")
 
 
 def ecc_mock_path(dev):
@@ -522,6 +576,93 @@ def ecc_mock_path(dev):
     }
 
 
+def mesh_proof_path(dev, read_launches, read_routes, params, vk, pk, circ, pinned):
+    """BenchCircuit's proof on the k = 14 keys under a mesh of four shards
+    (four cards where there are four, else four logical shards of `dev`):
+    the pinned single-device bytes, verified; every mesh route (the four-step
+    NTT, the sharded MSM, the row-sharded quotient fold) taken at least once."""
+    from halo2_tpu_torch.curves import Vesta
+    from halo2_tpu_torch.parallel import make_mesh, use_mesh
+    from halo2_tpu_torch.parallel.context import CALLS
+    from halo2_tpu_torch.plonk.prover import create_proof
+    from halo2_tpu_torch.plonk.verifier import verify_proof
+    from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite
+    from halo2_tpu_torch.utils.chacha import ChaCha20Rng
+    from halo2_tpu_torch.utils.measure import get_records, reset_records
+
+    count = torch.cuda.device_count() if torch.device(dev).type == "cuda" else 0
+    devices = [torch.device("cuda", i) for i in range(4)] if count >= 4 else [torch.device(dev)] * 4
+    CALLS.clear()
+    reset_records()
+    t0 = time.perf_counter()
+    with use_mesh(make_mesh(devices=devices)):
+        tr = Blake2bWrite(Vesta)
+        create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        proof = tr.finalize()
+    sync(dev)
+    prove_s = time.perf_counter() - t0
+    spans = get_records()
+    calls = dict(CALLS)
+    ok = verify_proof(params, vk, [[]], Blake2bRead(Vesta, proof))
+    require(ok is True, "mesh14: verify")
+    sha = hashlib.sha256(proof).hexdigest()
+    require(sha == pinned, f"mesh14 proof sha256 {sha} != {pinned}")
+    for route in ("four_step_ntt", "sharded_msm", "evaluate_h_mesh"):
+        require(calls.get(route, 0) > 0, f"mesh14: no call took {route}")
+    return dict(device_count=count, mesh=[str(d) for d in devices], pinned_sha256=True, verified=True,
+                mesh_calls=calls, prove_s=prove_s, prove_spans=spans, launches=read_launches(),
+                routes=read_routes())
+
+
+def mesh_ops_path(dev, g_points, seed: int, log_n: int = 20):
+    """The mesh's operations at gating config 5's sizes on four logical
+    shards of `dev`: FourStepNtt at 2^log_n (2^20) against the one-device
+    kernel-1 plan, and sharded_msm of 2^log_n points (`g_points` tiled)
+    against the one-device msm(), each timed by CUDA events."""
+    import random
+
+    from halo2_tpu_torch.curves import Vesta
+    from halo2_tpu_torch.fields import Fp
+    from halo2_tpu_torch.ops.field import FieldCtx, from_mont, mont_mul
+    from halo2_tpu_torch.ops.msm import MSMBases, msm
+    from halo2_tpu_torch.ops.ntt_cg import CgNttPlan
+    from halo2_tpu_torch.parallel import FourStepNtt, make_mesh, sharded_msm
+
+    mesh = make_mesh(devices=[torch.device(dev)] * 4)
+    fctx = FieldCtx(Fp)
+    n = 1 << log_n
+    q = Fp.MODULUS
+    omega = pow(Fp.ROOT_OF_UNITY, 1 << (Fp.S - log_n), q)
+    limbs = np.random.default_rng(seed).integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    limbs[:, 15] &= 0x3FFF  # below p
+    x = fctx.to_mont(torch.as_tensor(limbs.astype(np.int32), device=dev))
+    t0 = time.perf_counter()
+    single, four = CgNttPlan(Fp, log_n, omega), FourStepNtt(Fp, log_n, omega, mesh)
+    plan_s = time.perf_counter() - t0
+    ys, yf = single(x), four(x)
+    require(torch.equal(from_mont(ys, fctx), from_mont(yf, fctx)),
+            "mesh_ops: FourStepNtt at 2^20 != the one-device plan")
+    ntt = dict(log_n=log_n, shards=4, split=(four.n1, four.n2), exact=True,
+               same_limbs=bool(torch.equal(ys, yf)), plan_setup_s=plan_s,
+               single_ms=time_ms(lambda: single(x)), four_step_ms=time_ms(lambda: four(x)),
+               # the four-step twiddle pass alone: one plain torch product over 2^log_n
+               plain_mont_mul_ms=time_ms(lambda: mont_mul(x, x, fctx)))
+    rng = random.Random(seed)
+    pts = list(g_points) * (n // len(g_points))
+    scalars = [rng.randrange(Vesta.SCALAR.MODULUS) for _ in range(n)]
+    t0 = time.perf_counter()
+    bases = MSMBases(Vesta, pts, dev)
+    bases_s = time.perf_counter() - t0
+    want, single_first = once_ms(lambda: msm(scalars, bases, site="mesh_ops"))
+    got, sharded_first = once_ms(lambda: sharded_msm(scalars, bases, mesh))
+    require(got == want, "mesh_ops: sharded_msm of 2^20 points != the one-device msm()")
+    _, single_ms = once_ms(lambda: msm(scalars, bases, site="mesh_ops"))
+    _, sharded_ms = once_ms(lambda: sharded_msm(scalars, bases, mesh))
+    return dict(ntt=ntt, msm=dict(n=n, shards=4, exact=True, bases_s=bases_s,
+                                  single_first_ms=single_first, sharded_first_ms=sharded_first,
+                                  single_ms=single_ms, sharded_ms=sharded_ms))
+
+
 def sync(dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -532,8 +673,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from halo2_tpu_torch.circuits import (MulCircuit, bench_circuit_for_k, poseidon_k11, sinsemilla_k11,
-                                          sinsemilla_k14)
+    from halo2_tpu_torch.circuits import (MulCircuit, bench_circuit_for_k, poseidon_k11, sha256_k17,
+                                          sha256_k17_message, sinsemilla_k11, sinsemilla_k14)
     from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
     from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
@@ -1168,6 +1309,14 @@ def main() -> int:
     emit({"phase": "batch14", "card": smi, "proofs": 2, "accepted": True, "flipped_byte_rejected": True,
           "finalize_s": batch_s, "launches": batch_launches})
 
+    # ---- mesh14: the same proof under a mesh of four shards, the same bytes ----
+    zero_launches()
+    mesh14 = mesh_proof_path(dev, read_launches, read_routes, params, vk, pk, circ, BENCH_K14_PROOF_SHA256)
+    launches_mesh14 = mesh14["launches"]
+    for name in k14_kernels:
+        require(launches_mesh14[name] > 0, f"kernel {name} was not launched on the mesh14 path")
+    emit({"phase": "mesh14", "circuit": "BenchCircuit", "k": k, "card": smi, **mesh14})
+
     # ---- mock14: MockProver on BenchCircuit at k = 14, its vectorised
     # check on the card (no kernel of csrc/ runs: limb arithmetic in torch) ----
     zero_launches()
@@ -1199,6 +1348,29 @@ def main() -> int:
     sinsemilla11 = proof_path(dev, read_launches, read_routes, "sinsemilla11", *sinsemilla_k11(),
                               SINSEMILLA_K11_PROOF_SHA256)
     emit({"phase": "sinsemilla11", "circuit": "SinsemillaCircuit (3 words)", "card": smi, **sinsemilla11})
+
+    # ---- sha256_k17: the SHA-256 gadget, 14 blocks at k = 17 (one proof,
+    # no warm or traced repeat); kernels 1-7 must run ----
+    sha_fixture = os.path.join(ROOT, "tests", "fixtures_torch_sha256.json")
+    sha_vk = json.load(open(sha_fixture)).get("vk_k17_transcript_repr") if os.path.exists(sha_fixture) else None
+    zero_launches()
+    sha = proof_path(dev, read_launches, read_routes, "sha256_k17", *sha256_k17(), SHA256_K17_PROOF_SHA256,
+                     warm=False, vk_repr=sha_vk)
+    launches_sha = sha["launches"]
+    for name in k14_kernels + k16_kernels:
+        require(launches_sha[name] > 0, f"kernel {name} was not launched on the sha256_k17 path")
+    emit({"phase": "sha256_k17", "circuit": "ShaCircuit (14 blocks)", "card": smi,
+          "message_bytes": len(sha256_k17_message()), "message_sha256": hashlib.sha256(sha256_k17_message()).hexdigest(),
+          "rng_seed": "05" * 32, "sorted_overflows": sum(
+              c for key, c in sha["routes_by_stage"]["verify"].items() if key.endswith(":overflow")),
+          **sha})
+
+    # ---- sha256_mock: MockProver on one SHA-256 block at k = 17, its
+    # vectorised check on the card (no kernel of csrc/) ----
+    zero_launches()
+    sha_mock = sha256_mock_path(dev)
+    require(not any(read_launches().values()), "sha256_mock launched a kernel")
+    emit({"phase": "sha256_mock", "card": smi, **sha_mock})
 
     # ---- ecc_mock: MockProver on the ECC and Merkle gadgets, its
     # vectorised check on the card (no kernel of csrc/) ----
@@ -1670,6 +1842,12 @@ def main() -> int:
         report[name]["bn254"] = {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                      "bound_by", "shape")}
 
+    # ---- mesh_ops: the mesh's operations at gating config 5's sizes (a 2^20
+    # NTT, an MSM of 2^20 points) on four logical shards of the card ----
+    t0 = time.perf_counter()
+    mesh_ops = mesh_ops_path(dev, params16.g, 20261019)
+    emit({"phase": "mesh_ops", "card": smi, **mesh_ops, "seconds": time.perf_counter() - t0})
+
     # each kernel's main path: its launches there and its CUDA-event time in one proof
     paths = {name: ("k14", launches, proof_ms) for name in k14_kernels}
     paths.update({name: ("k16", launches16, sorted_proof_ms) for name in k16_kernels})
@@ -1694,7 +1872,9 @@ def main() -> int:
                            if "bn254" in rec else {}),
                         "launches_poseidon11": launches_poseidon[name],
                         "launches_sinsemilla14": launches_sinsemilla[name],
-                        "launches_k14_msm_sorted": launches_sorted14[name]})
+                        "launches_k14_msm_sorted": launches_sorted14[name],
+                        "launches_sha256_k17": launches_sha[name],
+                        "launches_mesh14": launches_mesh14[name]})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 10, "ten kernels")
     require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),

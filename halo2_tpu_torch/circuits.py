@@ -29,7 +29,9 @@ BASELINE.md's gating config 2, `tests/golden_circuits.py`),
 `SinsemillaCircuit` (`tests/test_sinsemilla_gadget.py`; `sinsemilla_k14` is
 BASELINE.md's gating config 4), `FusedCircuit`
 (`tests/test_sinsemilla_fused.py`) and `MerkleCircuit`
-(`tests/test_sinsemilla_merkle.py`).
+(`tests/test_sinsemilla_merkle.py`); and the SHA-256 gadget's `ShaCircuit`
+(`tests/test_sha256_gadget.py`, with the block count a parameter;
+`sha256_k17` hashes the most blocks that fit at k = 17).
 """
 
 from __future__ import annotations
@@ -1182,3 +1184,68 @@ class MerkleCircuit(Circuit):
             rv = root.value()
             assert not rv.is_none()
             assert _as_int(rv.force_value(), Fp.MODULUS) == self.expected_root % Fp.MODULUS
+
+
+SHA256_SEED = b"\x05" * 32
+# 887 bytes pad to exactly 14 blocks (887 + 1 + 8 = 896 = 14 * 64): the most
+# that fit in 2^17 rows, at about 8 980 rows a block.
+SHA256_K17_MESSAGE_BYTES = 887
+SHA256_K17_MESSAGE_SEED = 17
+
+
+def sha256_digest_words(message: bytes) -> List[int]:
+    """hashlib's SHA-256 of `message` as eight big-endian 32-bit words."""
+    import hashlib
+
+    h = hashlib.sha256(message).digest()
+    return [int.from_bytes(h[4 * i: 4 * i + 4], "big") for i in range(8)]
+
+
+class ShaCircuit(Circuit):
+    """SHA-256 of `message` through the Table16 chip over `num_blocks` padded
+    blocks (6 advice columns, one constants column, the 2^16-row spread
+    table); `synthesize` checks the digest against hashlib's."""
+
+    def __init__(self, message: Optional[bytes] = None, num_blocks: int = 1):
+        self.message = message
+        self.num_blocks = num_blocks
+
+    def without_witnesses(self):
+        return type(self)(None, self.num_blocks)
+
+    @classmethod
+    def configure(cls, meta: ConstraintSystem):
+        from .gadgets.sha256 import Table16Chip
+
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return Table16Chip.configure(meta)
+
+    def synthesize(self, config, layouter: Layouter):
+        from .gadgets.sha256 import Sha256, Table16Chip
+
+        chip = Table16Chip(config)
+        chip.load_table(layouter)
+        digest = Sha256(chip).digest_bytes(layouter, self.message, self.num_blocks)
+        if self.message is not None:
+            got = [d.value for d in digest]
+            expected = sha256_digest_words(self.message)
+            assert got == expected, (got, expected)
+
+
+def sha256_k17_message() -> bytes:
+    """The SHA-256 workload's message: SHA256_K17_MESSAGE_BYTES bytes drawn
+    from random.Random(SHA256_K17_MESSAGE_SEED)."""
+    import random
+
+    rng = random.Random(SHA256_K17_MESSAGE_SEED)
+    return bytes(rng.getrandbits(8) for _ in range(SHA256_K17_MESSAGE_BYTES))
+
+
+def sha256_k17():
+    """(k, circuit, instances, rng seed) of ShaCircuit at k = 17 over the
+    14 blocks of sha256_k17_message()."""
+    from .gadgets.sha256 import sha256_pad
+
+    message = sha256_k17_message()
+    return 17, ShaCircuit(message, len(sha256_pad(message))), [], SHA256_SEED

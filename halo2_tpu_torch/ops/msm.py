@@ -18,9 +18,13 @@ the environment variable MSM, read at each call:
   JAX package's plain device MSM (a debug route that "auto" never takes).
 
 Any other value raises ValueError (the JAX dispatcher sends it to its plain
-device MSM without a word). The device MSMs run on the bases' device.
+device MSM without a word). The device MSMs run on the bases' device. Under
+"auto", and before the host route, an active mesh (`parallel.use_mesh`)
+takes every MSM of at least its `msm_min` (and 8 D) points to
+`parallel.msm.sharded_msm`, as `halo2_tpu/ops/msm.py:289-299` does.
 `ROUTES` counts per call site how often a device MSM tried the sorted MSM
-and how it ended, and how often "auto" held one back by its scalars.
+and how it ended, how often "auto" held one back by its scalars, and how
+often the mesh took one ("sharded").
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ from .field import ints_to_limbs
 DEVICE_MSM_MIN = 1 << 12
 SORTED_MSM_MIN = 1 << 16
 MSM_ROUTES = ("auto", "host", "pallas", "sorted", "jax")
-# (call site, "sorted" | "overflow" | "small_scalars") -> count. "overflow"
-# MSMs went to the sorted MSM first and then to the bucket MSM;
-# "small_scalars" ones failed the host pre-check (largest scalar < 2^128).
+# (call site, "sorted" | "overflow" | "small_scalars" | "sharded") -> count.
+# "overflow" MSMs went to the sorted MSM first and then to the bucket MSM;
+# "small_scalars" ones failed the host pre-check (largest scalar < 2^128);
+# "sharded" ones went to the mesh.
 ROUTES: Counter = Counter()
 
 
@@ -128,6 +133,8 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
     from .msm_bucket import msm_bucket_many
     from .msm_sorted import BucketOverflow, msm_sorted
 
+    from ..parallel.context import active_mesh
+
     impl = os.environ.get("MSM", "auto")
     if impl not in MSM_ROUTES:
         raise ValueError(f"MSM={impl!r}: expected one of {', '.join(MSM_ROUTES)}")
@@ -143,7 +150,9 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
             raise ValueError("msm: a list of points needs a device")
     n = len(scalars)
     with span(f"msm n={n}", category="msm"):
-        if n < DEVICE_MSM_MIN or impl == "host":
+        mc = active_mesh()
+        sharded = impl == "auto" and mc is not None and mc.can_shard_msm(n)
+        if not sharded and (n < DEVICE_MSM_MIN or impl == "host"):
             return msm_host(scalars, host_points[:n], curve)
         if not isinstance(bases, MSMBases):
             keep = [i for i, pt in enumerate(host_points[:n]) if not pt.is_identity()]
@@ -151,6 +160,11 @@ def msm(scalars: Sequence[int], bases, curve: Optional[Type[Curve]] = None,
                 scalars = [scalars[i] for i in keep]
                 host_points = [host_points[i] for i in keep]
             bases = MSMBases(curve, host_points, device)
+        if sharded:
+            from ..parallel.msm import sharded_msm
+
+            ROUTES[site, "sharded"] += 1
+            return sharded_msm(scalars, bases, mc.mesh, mc.axis)
         q = curve.SCALAR.MODULUS
         ints = [int(s) % q for s in scalars]
         canon = torch.as_tensor(ints_to_limbs(ints), device=device)

@@ -91,9 +91,27 @@ class NttPlan:
 
 
 def get_plan(field: Type[FieldElement], log_n: int, omega: int):
-    """The NTT engine that the environment variable NTT names, read at each
-    call: the counterpart of `halo2_tpu/ops/ntt.py:103-138` and of the
-    reference's switch between its three FFT implementations (`fft.rs`).
+    """The NTT engine for a transform of 2^log_n points: the counterpart of
+    `halo2_tpu/ops/ntt.py:103-138` and of the reference's switch between its
+    three FFT implementations (`fft.rs`).
+
+    When a mesh is active (`parallel.use_mesh`) and the transform is large
+    enough for its four-step split (n >= D^2), the sharded `FourStepNtt`,
+    whose sub-transforms take `single_plan`'s engine; otherwise
+    `single_plan`'s engine."""
+    from ..parallel.context import active_mesh
+
+    mc = active_mesh()
+    if mc is not None and mc.can_shard_ntt(log_n):
+        from ..parallel.ntt import FourStepNtt
+
+        return FourStepNtt(field, log_n, omega, mc.mesh, mc.axis)
+    return single_plan(field, log_n, omega)
+
+
+def single_plan(field: Type[FieldElement], log_n: int, omega: int):
+    """The one-device engine that the environment variable NTT names, read at
+    each call.
 
     - unset, "auto", "cg" or "pallas2": `CgNttPlan` (kernel 1) at every
       size. The JAX package's "auto" takes it only for log n >= 10 on a TPU
@@ -105,8 +123,7 @@ def get_plan(field: Type[FieldElement], log_n: int, omega: int):
     - "jnp": `NttPlan`, the plain radix-2 whole-transform reference.
 
     Any other value raises ValueError: the JAX dispatcher falls back to the
-    radix-2 plan, which would hide a misspelt engine. The JAX package's mesh
-    branch is not ported (the port has no mesh)."""
+    radix-2 plan, which would hide a misspelt engine."""
     impl = os.environ.get("NTT", "auto")
     if impl in ("auto", "cg", "pallas2"):
         from .ntt_cg import CgNttPlan
@@ -123,6 +140,15 @@ def get_plan(field: Type[FieldElement], log_n: int, omega: int):
     if impl == "jnp":
         return NttPlan(field, log_n, omega)
     raise ValueError(f"NTT={impl!r}: expected one of auto, cg, pallas2, pallas, mxu, jnp")
+
+
+def ntt_many(plan, a: torch.Tensor) -> torch.Tensor:
+    """(B, n, 16) -> (B, n, 16): `plan` down each of the B rows, as one
+    batched transform where the plan has one (`CgNttPlan.many`)."""
+    many = getattr(plan, "many", None)
+    if many is not None:
+        return many(a)
+    return torch.stack([plan(row) for row in a])
 
 
 def intt(a: torch.Tensor, field: Type[FieldElement], omega_inv: int, n_inv: int) -> torch.Tensor:

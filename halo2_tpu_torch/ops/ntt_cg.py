@@ -219,3 +219,26 @@ class CgNttPlan:
             x = self._level(x.reshape(self.n // (f * g), f, g, NLIMBS), tab["stw"], tab["inter"],
                             tab["perm"])
         return x.reshape(self.n, NLIMBS)
+
+    def many(self, a: torch.Tensor) -> torch.Tensor:
+        """(nb, n, 16) -> (nb, n, 16): the transform of each row, as the same
+        levels' launches with nb times the columns. A level's columns are
+        independent, so transform t's columns follow transform t - 1's; the
+        last level writes column t Bs + b to row k1 of slot t Bs + perm[b]
+        (Bs its columns a transform), and one copy puts each transform's
+        rows together."""
+        nb = a.shape[0]
+        if tuple(a.shape[1:]) != (self.n, NLIMBS):
+            raise ValueError(f"{type(self).__name__}.many: expected (B, {self.n}, 16), "
+                             f"got {tuple(a.shape)}")
+        x = a.contiguous()
+        for lv, tab in zip(self.levels, self._tables(a.device)):
+            f, g = lv["f"], lv["g"]
+            perm = tab["perm"]
+            if perm is not None:
+                offs = torch.arange(nb, dtype=perm.dtype, device=perm.device) * perm.numel()
+                perm = (offs[:, None] + perm[None, :]).reshape(-1)
+            x = self._level(x.reshape(nb * self.n // (f * g), f, g, NLIMBS), tab["stw"],
+                            tab["inter"], perm)
+        f = self.levels[-1]["f"] if self.levels else 1
+        return x.reshape(f, nb, self.n // f, NLIMBS).transpose(0, 1).reshape(nb, self.n, NLIMBS)

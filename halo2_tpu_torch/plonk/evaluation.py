@@ -20,6 +20,8 @@ import os
 from types import SimpleNamespace
 from typing import Dict, List, Optional
 
+import torch
+
 from ..poly import EXTENDED, LAGRANGE, FVec, Polynomial
 from ..ops.ntt import powers
 from .expression import ADVICE, FIXED, Expression
@@ -72,22 +74,30 @@ class Evaluator:
         lookups: List[List],
         permutations: List,
     ) -> Polynomial:
-        """Dispatch on EVAL_H, read at each call: unset or "parts", the
-        part-wise walk; "full", the plain full extended-domain fold. The JAX
-        package's "mesh" (its SPMD fold) has no port yet and raises
-        NotImplementedError; any other value raises ValueError (the JAX
-        dispatcher takes the part-wise walk without a word)."""
-        mode = os.environ.get("EVAL_H", "parts")
+        """Dispatch on EVAL_H, read at each call, as
+        `halo2_tpu/plonk/evaluation.py:113-128` does: "parts", the part-wise
+        walk; "full", the plain full extended-domain fold; "mesh", or no
+        EVAL_H while a mesh (`parallel.use_mesh`) is active and can shard the
+        extended domain, the row-sharded fold `evaluate_h_mesh`; no EVAL_H
+        otherwise, the part-wise walk. Any other value raises ValueError
+        (the JAX dispatcher takes the part-wise walk without a word)."""
+        from ..parallel.context import active_mesh
+
+        mode = os.environ.get("EVAL_H")
         args = (advice_polys, instance_polys, challenges, y, beta, gamma,
                 theta, lookups, permutations)
         if mode == "full":
             return self.evaluate_h_full(*args)
         if mode == "parts":
             return self.evaluate_h_parts(*args)
-        if mode == "mesh":
-            raise NotImplementedError(
-                "EVAL_H=mesh: the port has no mesh yet (ROADMAP.md, the multi-device item)")
-        raise ValueError(f"EVAL_H={mode!r}: expected parts or full")
+        mc = active_mesh()
+        if mode == "mesh" or (
+            mode is None and mc is not None and mc.can_shard_ntt(self.domain.extended_k)
+        ):
+            return self.evaluate_h_mesh(*args)
+        if mode is None:
+            return self.evaluate_h_parts(*args)
+        raise ValueError(f"EVAL_H={mode!r}: expected parts, full or mesh")
 
     def _fold_machinery(
         self,
@@ -247,9 +257,8 @@ class Evaluator:
             needed_idx = tuple(sorted(needed))
             max_exp = max((N - gi for gi, *_ in active), default=0)
 
-            dev = domain.device
-
             def fold_fn(arrays, coset_x_vals, scal):
+                dev = coset_x_vals.device  # the fold runs where its rows lie
                 vecs: Dict[int, FVec] = {i: FVec(F, arrays[i]) for i in arrays}
                 coset_x = FVec(F, coset_x_vals)
                 y_s = FVec(F, scal["y"])
@@ -360,9 +369,19 @@ class Evaluator:
 
         return SimpleNamespace(poly_list=poly_list, fold_for=make_fold, L=L)
 
-    def _scalar_inputs(self, challenges, y, beta, gamma, theta):
+    def _rotation_reach(self):
+        """(back, ahead): the most base-domain rows any constraint item reads
+        before and after its own row (its queries, the permutation's and the
+        lookups' rotations by 1, -1 and the last blinding row)."""
+        cs = self.pk.vk.cs
+        rotations = {1, -1, -(cs.blinding_factors() + 1)}
+        for _column, rotation in cs.advice_queries + cs.fixed_queries + cs.instance_queries:
+            rotations.add(rotation.i)
+        return max(0, -min(rotations)), max(0, max(rotations))
+
+    def _scalar_inputs(self, challenges, y, beta, gamma, theta, dev=None):
         ctx = self.domain.ctx
-        dev = self.domain.device
+        dev = self.domain.device if dev is None else dev
         return {
             "y": ctx.const(y, dev),
             "beta": ctx.const(beta, dev),
@@ -437,6 +456,65 @@ class Evaluator:
             factor = factor * domain.extended_omega % p
 
         return domain.lagrange_vecs_to_extended(value_part_clusters)
+
+    def evaluate_h_mesh(
+        self,
+        advice_polys: List[List[Polynomial]],
+        instance_polys: List[List[Polynomial]],
+        challenges: List[int],
+        y: int,
+        beta: int,
+        gamma: int,
+        theta: int,
+        lookups: List[List],
+        permutations: List,
+    ) -> Polynomial:
+        """The row-sharded quotient fold (the JAX package's SPMD fold,
+        `halo2_tpu/plonk/evaluation.py:495-544`).
+
+        Every column the constraints use is coset-extended over the whole
+        extended domain (under an active mesh by the four-step NTT that
+        `get_plan` returns) and cut into D row blocks, block i on the mesh's
+        device i together with the halo rows that its rotations reach on
+        either side. Each shard runs the part-wise engine's fold of every
+        constraint item on its rows (rotations scaled to the extended
+        domain), keeps its block and sends it to the domain's device, where
+        the blocks make the quotient's extended evaluations. With no active
+        mesh (EVAL_H=mesh alone) the fold runs as one shard on the domain's
+        device. Exact integer arithmetic gives the single-device values, so
+        the proof bytes are unchanged."""
+        from ..parallel.context import CALLS, active_mesh
+
+        CALLS["evaluate_h_mesh"] += 1
+        domain = self.domain
+        F = self.field
+        ctx = domain.ctx
+        ext_n = domain.extended_n
+        m = ext_n >> domain.k
+        mc = active_mesh()
+        devices = mc.mesh.devices if mc is not None else (domain.device,)
+        D = len(devices)
+        block = ext_n // D
+        lo, hi = (r * m for r in self._rotation_reach()) if D > 1 else (0, 0)
+        mach = self._fold_machinery(
+            advice_polys, instance_polys, challenges, lookups, permutations,
+            n_rows=block + lo + hi, rot_scale=m,
+        )
+        fold, needed_idx = mach.fold_for(0)
+        ext = {i: domain.coeff_to_extended(mach.poly_list[i].copy()).vec.vals for i in needed_idx}
+        pw = powers(domain.extended_omega, ext_n, ctx, domain.device)
+        coset_x = ctx.mul(pw, ctx.const(domain.g_coset, domain.device))
+        blocks = []
+        for i, dev in enumerate(devices):
+            rows = (torch.arange(i * block - lo, (i + 1) * block + hi, device=domain.device)
+                    % ext_n)
+            out = fold({c: v[rows].to(dev) for c, v in ext.items()}, coset_x[rows].to(dev),
+                       self._scalar_inputs(challenges, y, beta, gamma, theta, dev))
+            h = None
+            for c in sorted(out):
+                h = out[c] if h is None else ctx.add(h, out[c])
+            blocks.append(h[lo:lo + block].to(domain.device))
+        return Polynomial(EXTENDED, FVec(F, torch.cat(blocks, dim=0)))
 
     def evaluate_h_full(
         self,

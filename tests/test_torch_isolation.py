@@ -34,7 +34,9 @@ def test_importing_every_port_module_loads_no_jax():
             "halo2_tpu_torch.gadgets.poseidon"} <= set(mods)
     assert {f"halo2_tpu_torch.gadgets.{m}" for m in (
         "ecc", "ecc_mul", "ecc_fixed", "ecc_api", "sinsemilla_primitives", "sinsemilla",
-        "sinsemilla_fused", "sinsemilla_merkle")} <= set(mods)
+        "sinsemilla_fused", "sinsemilla_merkle", "sha256")} <= set(mods)
+    assert {f"halo2_tpu_torch.parallel{m}" for m in (
+        "", ".context", ".ntt", ".msm", ".quotient")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

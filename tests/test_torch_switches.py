@@ -4,7 +4,8 @@ totals, on the CPU, held to the JAX package's bytes.
 - EVAL_H=full (the plain extended-domain fold) gives MulCircuit k = 4 the
   golden proof bytes (tests/fixtures_golden.json, the JAX package's), and
   the same bytes as the part-wise walk on MixedDegreeCircuit at k = 5, whose
-  constraints span the clusters; EVAL_H=mesh and unknown values raise.
+  constraints span the clusters; unknown values raise (EVAL_H=mesh takes the
+  row-sharded fold: tests/test_torch_parallel.py).
 - MSM=host, pallas, sorted and jax each give the golden bytes with every MSM
   of 16 points or more sent down their route; an unknown value raises.
 - BatchVerifier accepts the golden proof beside a second MulCircuit proof
@@ -105,7 +106,7 @@ def test_eval_h_full_equals_parts_on_mixed_degree_clusters(monkeypatch):
     assert verify_proof(params, vk, [[]], Blake2bRead(Vesta, proofs["parts"])) is True
 
 
-@pytest.mark.parametrize("mode,error", [("mesh", NotImplementedError), ("fold", ValueError)])
+@pytest.mark.parametrize("mode,error", [("", ValueError), ("fold", ValueError)])
 def test_eval_h_other_values_raise(mul_k4, monkeypatch, mode, error):
     """The switch is read before any argument is looked at."""
     monkeypatch.setenv("EVAL_H", mode)
