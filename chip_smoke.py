@@ -2,9 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the ten CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
+Builds the twelve CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
-main path's shapes and times both (the bucket MSM's kernels 2-4 at both
+main path's shapes and times both (kernel A, the elementwise Montgomery
+product, sum and difference of ops/field.py on the card, bit for bit on
+each of the four moduli at 2^20 elements with the edge values 0, 1, p - 1,
+2p - 1, and 2p and 2p + d on Pasta, and on every broadcast pattern the
+prover gives it; kernel B, the quotient fold of one part, bit for bit
+against the plain program and the eager fold on every part of the first
+k = 14, poseidon11 and sinsemilla14 proofs and on part 0 of the sha256_k17
+proof, timed on k = 14's part 0; both launched on every proof path) (the bucket MSM's kernels 2-4 at both
 window widths: c = 4 at M = 3, n = 2^14 + 1 and c = 8 at M = 2, n = 2^15,
 each MSM also against msm_host, kernel 4 bit for bit, also on parts that hold
 the identity, a pair P, P and a pair P, -P; kernel 1 bit for bit at every
@@ -124,6 +131,12 @@ counters set to 0 just before it and read just after:
   k = 16 generators tiled 16 times) against the one-device msm(), both timed
   by CUDA events.
 
+Bounds: the bytes a kernel must move at 3.35 TB/s, or its Montgomery
+products, each counted in the instruction forms its kernel uses at the
+rates this card runs them (product_mix, MUL_RATES), or for kernel 7 the
+multiply instructions of its chain of dependent products issued one a
+cycle, whichever is largest.
+
 Each kernel is timed twice: `ms`, the median CUDA-event time of one call
 (host launch included), and `device_ms`, the CUDA-event time per call of ten
 calls replayed from one CUDA graph (the card's own time, which for a kernel
@@ -187,13 +200,23 @@ SINSEMILLA_K14_PROOF_SHA256 = "b6f17028fe899840f594d8b4a08d8983bb5912124c9de98bc
 # tests/fixtures_torch_sha256.json holds it.
 SHA256_K17_PROOF_SHA256 = "1d2de4163bd23c4eb44c0bf1a8c7e9273242375470d32387279eaa532fb94cc9"
 
-# Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). For integer
-# work the assumed peak is 64 32-bit multiply instructions per clock per SM
-# (CUDA C++ Programming Guide, throughput table, compute capability 9.0) x
-# 132 SMs x 1.98 GHz = 1.673e13 instructions/s. Only multiplies are counted,
-# so the operation bound is a lower bound on what the card must spend.
+# Bounds. Device memory moves 3.35e12 B/s (H100 SXM data sheet). The
+# operations bound counts the 32-bit multiply instructions of each Montgomery
+# product in the form its kernel computes it (product_mix), each instruction
+# form at the rate this card runs it over a full grid (`python -m
+# halo2_tpu_torch.tools.profile_kernels oplat`, its mul_peak probe, on an
+# NVIDIA H100 80GB HBM3 at 700 W): mad.lo 1.604e13, mad.hi 7.405e12 and
+# mad.wide.u32 5.207e12 instructions/s. Only multiplies are counted, so the
+# operation bound is a lower bound on what the card must spend. Kernel 7, one
+# warp's chain of dependent products, is bound by issue instead: its products
+# in series x their multiply instructions, one a cycle, at the SM clock of
+# 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
-INT32_MUL_PER_S = 64 * 132 * 1.98e9
+MUL_RATES = {"wide": 5.207e12, "lo": 1.604e13, "hi": 7.405e12}
+SM_CLOCK_HZ = 1.98e9
+# product rounds in series of one doubling (warp_double) and one addition
+# (warp_add) of kernel 7
+HORNER_ROUNDS = 3
 # Montgomery products per complete addition (RCB15, a = 0): 11 general
 # products for the mixed addition (alg. 8), 12 for the full one (alg. 7). Each
 # also multiplies twice by 3b (15 on Pasta, 9 on BN254's G1), which shifts and
@@ -204,18 +227,27 @@ FULL_ADD_PRODUCTS = 12
 DOUBLE_PRODUCTS = 8
 
 
-def mont_mul_instrs(p: int) -> int:
-    """32-bit multiply instructions one CIOS Montgomery product mod p needs:
-    the 64 word products of a*b (low and high word, two instructions each),
-    per iteration the low-only product m = t0 * n0 unless n0 = -1/p mod 2^32
-    is -1 (then m = -t0, a negation), and m * p[j] for each word of p that is
-    not 0, 1 or a power of two (a shift does those), two instructions each.
-    The Pasta moduli have p = 1 mod 2^32 and 3 such words: 128 + 0 + 48."""
+def product_mix(p: int, form: str = "cc"):
+    """(mul.wide, mad.lo, mad.hi) 32-bit multiply instructions of one
+    Montgomery product mod p in csrc/field.cuh's `form`. "cc", fe_mul_cc
+    (kernels 1, 4, 7-10, A and B): each of the 8 rows takes a * b_i by 8
+    mul.wide.u32, then m * p: for a modulus of pasta_form (p = 1 + d' 2^32 +
+    2^254, Fp and Fq) 3 low and 3 high products of m and d' off the chain,
+    else m = t0 n0 and 8 mad.lo and 8 mad.hi over p. "generic", fe_mul
+    (kernels 2, 3, 5 and 6): each row 8 mul.wide for a * b_i, m = t0 n0 and 8
+    mul.wide for m * p."""
     words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-    general = sum(1 for w in words if w & (w - 1))
-    n0 = -pow(p, -1, 1 << 32) % (1 << 32)
-    m_muls = 0 if n0 == 0xFFFFFFFF else 8
-    return 2 * 64 + m_muls + 8 * 2 * general
+    pasta = words[0] == 1 and words[4:7] == [0, 0, 0] and words[7] == 0x40000000
+    if form == "generic":
+        return 128, 8, 0
+    return (64, 24, 24) if pasta else (64, 72, 64)
+
+
+def product_s(p: int, form: str = "cc") -> float:
+    """Seconds of the card's multiply pipe one product takes (product_mix at
+    MUL_RATES)."""
+    wide, lo, hi = product_mix(p, form)
+    return wide / MUL_RATES["wide"] + lo / MUL_RATES["lo"] + hi / MUL_RATES["hi"]
 
 
 def emit(obj):
@@ -235,9 +267,11 @@ def chain_points(curve, n: int):
     return [Point(curve, xy) for xy in batch_to_affine(jac, p)]
 
 
-def bound(bytes_moved: float, mul_instrs: float):
+def bound(bytes_moved: float, op_s: float):
+    """(bound ms, what bounds it): the larger of the bytes at HBM_BYTES_PER_S
+    and `op_s`, the seconds of the card's multiply pipe (product_s)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = mul_instrs / INT32_MUL_PER_S * 1e3
+    t_ops = op_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -255,7 +289,8 @@ def timed(name, fn, log):
 
 
 KERNEL_SYMBOLS = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
-                  "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<"}
+                  "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<",
+                  "field_ew": "ew_kernel<", "fold_program": "fold_kernel<"}
 
 
 def traced_proof(prove, wrapped):
@@ -281,7 +316,7 @@ def traced_proof(prove, wrapped):
         event_ms[name] += start.elapsed_time(end)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
-                 for name, sym in KERNEL_SYMBOLS.items() if name in originals}
+                 for name, sym in KERNEL_SYMBOLS.items()}
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
     return out, dict(profiled_prove_s=profiled_s, device_events=len(dev_events), device_busy_ms=busy_ms,
                      kernels_event_ms=event_ms, kernels_traced_ms=traced_ms)
@@ -368,14 +403,15 @@ def environ(**values):
 
 
 def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, pinned, wrong=None,
-               wrapped=(), warm=True, vk_repr=None):
+               wrapped=(), warm=True, vk_repr=None, fold_caps=None, fold_limit=None):
     """A gating config through the entry points: ParamsIPA.cached(Vesta, k)
     -> keygen_vk -> keygen_pk -> create_proof (Blake2b; a first proof, with
     `warm` a warm one, and with `wrapped` kernels a third, traced by
     traced_proof) -> verify_proof. The VK must have the transcript repr
     `vk_repr` where one is given; the proof must have the `pinned` sha256,
     verify, and fail to verify with a flipped byte or with the `wrong`
-    instances."""
+    instances. With a list `fold_caps`, the first proof's quotient folds
+    (at most `fold_limit` parts) are captured into it (fold_capture)."""
     from halo2_tpu_torch.curves import Vesta
     from halo2_tpu_torch.plonk.error import OpeningError
     from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
@@ -402,7 +438,8 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
         reset_records()
         t3 = time.perf_counter()
         tr = Blake2bWrite(Vesta)
-        create_proof(params, pk, [circ], [instances], ChaCha20Rng(seed), tr)
+        with fold_capture(fold_caps if not proofs else None, fold_limit):
+            create_proof(params, pk, [circ], [instances], ChaCha20Rng(seed), tr)
         proofs.append(tr.finalize())
         sync(dev)
         prove_s.append(time.perf_counter() - t3)
@@ -454,6 +491,141 @@ def proof_path(dev, read_launches, read_routes, tag, k, circ, instances, seed, p
                 totals_first=totals[0], totals_warm=totals[1] if warm else None,
                 launches=marks["verify"], launches_by_stage=by_stage, routes_by_stage=routes,
                 traced_warm=traced)
+
+
+@contextmanager
+def fold_capture(caps, limit=None):
+    """Inside the block, each call of a quotient fold (ops/fold.Fold: kernel
+    B on the card) appends (fold, arrays, coset_x, scalars, output) to
+    `caps`, the first `limit` calls (all with None); nothing with caps None."""
+    from halo2_tpu_torch.ops import fold as fold_mod
+
+    if caps is None:
+        yield
+        return
+    original = fold_mod.Fold.__call__
+
+    def call(self, arrays, coset_x_vals, scal):
+        out = original(self, arrays, coset_x_vals, scal)
+        if limit is None or len(caps) < limit:
+            caps.append((self, dict(arrays), coset_x_vals, scal, out))
+        return out
+
+    fold_mod.Fold.__call__ = call
+    try:
+        yield
+    finally:
+        fold_mod.Fold.__call__ = original
+
+
+def fold_check(tag, caps, timed_parts=1):
+    """Kernel B's output of each captured part against run_program_plain (the
+    same program with the plain field ops) and the eager fold (the walk on
+    FVecs, kernel A), bit for bit. Returns a row a part: the program's
+    instructions, live slots and columns, the plain and eager times (one
+    call each, CUDA events), and for the first `timed_parts` parts kernel
+    B's ms, device ms and bound. The launches the comparisons make are taken
+    back out of the counts."""
+    from halo2_tpu_torch.ops import field_ew
+    from halo2_tpu_torch.ops import fold as fold_mod
+
+    saved = (dict(field_ew.LAUNCHES), dict(fold_mod.LAUNCHES))
+    rows = []
+    for i, (f, arrays, cx, scal, out) in enumerate(caps):
+        prog = f.program
+        cols = [arrays[j] for j in prog.array_ids]
+        table = fold_mod.scalar_table(prog, scal, cx.device)
+        plain, plain_ms = once_ms(lambda: fold_mod.run_program_plain(prog, cols, cx, table))
+        eager, eager_ms = once_ms(lambda: f.eager(arrays, cx, scal))
+        require(list(out) == list(plain) == list(eager), f"{tag} part {i}: the clusters differ")
+        for c in out:
+            require(torch.equal(out[c], plain[c]), f"{tag} part {i} cluster {c}: kernel B != run_program_plain")
+            require(torch.equal(out[c], eager[c]), f"{tag} part {i} cluster {c}: kernel B != the eager fold")
+        counts = prog.counts()
+        n = cx.shape[0]
+        row = dict(part=i, rows=n, clusters=list(prog.clusters), instructions=len(prog.instrs),
+                   counts=counts, live_slots=prog.slots, columns=len(prog.array_ids),
+                   scalars=len(prog.scalar_defs), exact=True, plain_ms=plain_ms, eager_ms=eager_ms)
+        if i < timed_parts:
+            def run():
+                return fold_mod.run_program(prog, cols, cx, table)
+
+            # each column it loads read once, the coset points, each cluster
+            # written once, the program and the scalar table; a product a MUL a row
+            loaded = {a for op, _, a, _ in prog.instrs if op == fold_mod.LOAD}
+            nbytes = (64 * n * (len(loaded) + (counts["COSET_X"] > 0) + len(prog.clusters))
+                      + 16 * (len(prog.instrs) + 4 * len(prog.scalar_defs)))
+            b_ms, b_by = bound(nbytes, counts["MUL"] * n * product_s(f.field.MODULUS))
+            row.update(ms=time_ms(run), device_ms=device_ms(run, 5), bound_ms=b_ms, bound_by=b_by,
+                       products=counts["MUL"] * n)
+        rows.append(row)
+    field_ew.LAUNCHES.update(saved[0])
+    fold_mod.LAUNCHES.update(saved[1])
+    return rows
+
+
+def field_ew_path(dev, seed: int, log_n: int = 20):
+    """Kernel A against its plain version, bit for bit: each op on each
+    modulus (Fp, Fq, FrBn, FqBn) at 2^log_n elements below 2p, the edge
+    values 0, 1, p - 1 and 2p - 1 (on the Pasta moduli also 2p and 2p + d,
+    d = p - 2^254, the rare outputs of a product) in the first rows, and on
+    every broadcast pattern the prover hands it at that size; then each op
+    on Fp at 2^log_n timed (ms, device ms, the plain version's ms, bound).
+    The launches it makes are taken back out of the counts."""
+    from halo2_tpu_torch.fields import Fp, Fq, FqBn, FrBn
+    from halo2_tpu_torch.ops import field as fo
+    from halo2_tpu_torch.ops import field_ew
+
+    saved = dict(field_ew.LAUNCHES)
+    rng = np.random.default_rng(seed)
+    n = 1 << log_n
+    plain = {"mont_mul": fo.mont_mul_plain, "add_mod": fo.add_mod_plain, "sub_mod": fo.sub_mod_plain}
+    checks, timing = [], {}
+    for F in (Fp, Fq, FrBn, FqBn):
+        p = F.MODULUS
+        ctx = fo.FieldCtx(F)
+        edge = [0, 1, p - 1, 2 * p - 1]
+        if p >> 254 == 1:  # Pasta: p = 2^254 + d
+            edge += [2 * p, 2 * p + p - (1 << 254)]
+
+        def operand(shift):
+            limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+            limbs[:, 15] %= (2 * p) >> 240  # below 2p
+            limbs[: len(edge)] = fo.ints_to_limbs(edge[shift:] + edge[:shift])
+            return torch.as_tensor(limbs.astype(np.int32), device=dev)
+
+        a, b = operand(0), operand(1)
+        small_a = a[:60].reshape(2, 1, 3, 1, 5, 2, 16)
+        small_b = b[:48].reshape(1, 4, 1, 6, 1, 2, 16)
+        cases = {
+            "same": (a, b),
+            "slices": (a[3:], b[:-3]),
+            "stacked": (a.reshape(4, n // 4, 16), b.reshape(4, n // 4, 16)),
+            "unsqueeze": (a[: n // 16].unsqueeze(-2), b.reshape(n // 16, 16, 16)),
+            "scalar_right": (a, b[1]),
+            "scalar_left": (b[2], a),
+            "expanded": (a[:n // 8].unsqueeze(0).expand(8, n // 8, 16), b[:1]),
+            "strided_limbs": (a.t().contiguous().t(), b),
+            "six_dims": (small_a, small_b),
+        }
+        for pattern, (x, y) in cases.items():
+            for op in field_ew.OPS:
+                got = getattr(fo, op)(x, y, ctx)
+                require(torch.equal(got, plain[op](x, y, ctx)),
+                        f"field_ew {op} {F.__name__} {pattern}: kernel != plain (limbs)")
+                checks.append(f"{F.__name__}:{pattern}:{op}")
+        if F is Fp:
+            for op in field_ew.OPS:
+                def kern(op=op):
+                    return getattr(fo, op)(a, b, ctx)
+
+                b_ms, b_by = bound(3 * 64 * n, n * product_s(p) if op == "mont_mul" else 0.0)
+                timing[op] = dict(ms=time_ms(kern), device_ms=device_ms(kern),
+                                  plain_ms=time_ms(lambda op=op: plain[op](a, b, ctx), 2),
+                                  bound_ms=b_ms, bound_by=b_by, shape=f"n=2^{log_n} (Fp)")
+    field_ew.LAUNCHES.update(saved)
+    return dict(n=n, checks=len(checks), exact=True, patterns=sorted({c.split(":")[1] for c in checks}),
+                moduli=["Fp", "Fq", "FrBn", "FqBn"], ops=timing)
 
 
 def planted_failure(prover, tag: str, plant, constraints: int, kind: str = "constraint"):
@@ -623,7 +795,7 @@ def mesh_ops_path(dev, g_points, seed: int, log_n: int = 20):
 
     from halo2_tpu_torch.curves import Vesta
     from halo2_tpu_torch.fields import Fp
-    from halo2_tpu_torch.ops.field import FieldCtx, from_mont, mont_mul
+    from halo2_tpu_torch.ops.field import FieldCtx, from_mont, mont_mul, mont_mul_plain
     from halo2_tpu_torch.ops.msm import MSMBases, msm
     from halo2_tpu_torch.ops.ntt_cg import CgNttPlan
     from halo2_tpu_torch.parallel import FourStepNtt, make_mesh, sharded_msm
@@ -645,8 +817,10 @@ def mesh_ops_path(dev, g_points, seed: int, log_n: int = 20):
     ntt = dict(log_n=log_n, shards=4, split=(four.n1, four.n2), exact=True,
                same_limbs=bool(torch.equal(ys, yf)), plan_setup_s=plan_s,
                single_ms=time_ms(lambda: single(x)), four_step_ms=time_ms(lambda: four(x)),
-               # the four-step twiddle pass alone: one plain torch product over 2^log_n
-               plain_mont_mul_ms=time_ms(lambda: mont_mul(x, x, fctx)))
+               # the four-step twiddle pass alone: one product over 2^log_n, kernel A
+               # and its plain version
+               twiddle_mont_mul_ms=time_ms(lambda: mont_mul(x, x, fctx)),
+               plain_mont_mul_ms=time_ms(lambda: mont_mul_plain(x, x, fctx)))
     rng = random.Random(seed)
     pts = list(g_points) * (n // len(g_points))
     scalars = [rng.randrange(Vesta.SCALAR.MODULUS) for _ in range(n)]
@@ -677,7 +851,9 @@ def main() -> int:
                                           sha256_k17_message, sinsemilla_k11, sinsemilla_k14)
     from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
-    from halo2_tpu_torch.ops import _build, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr, tile_bench
+    from halo2_tpu_torch.ops import (_build, field_ew, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr,
+                                     tile_bench)
+    from halo2_tpu_torch.ops import fold as fold_ops
     from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx, PointVec
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont, ints_to_limbs, limbs_to_ints
@@ -754,7 +930,7 @@ def main() -> int:
         prods = cols * int((tab["stw"] != one).any(-1).sum())
         if inter is not None:
             prods += int((inter != one).any(-1).sum(-1)[torch.arange(cols, device=dev) % g].sum())
-        return (*bound(nbytes, mont_mul_instrs(ctx.p_int) * prods), prods)
+        return (*bound(nbytes, product_s(ctx.p_int) * prods), prods)
 
     def edge_mont(n, p=q):
         """(n, 16) Montgomery limbs mod p (Fp by default): 0, 1, p - 1 and
@@ -781,7 +957,7 @@ def main() -> int:
     report = {}
 
     counters = (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES, ntt_mr.LAUNCHES,
-                tile_bench.LAUNCHES)
+                tile_bench.LAUNCHES, field_ew.LAUNCHES, fold_ops.LAUNCHES)
 
     def zero_launches():
         for counts in counters:
@@ -790,7 +966,10 @@ def main() -> int:
         msm_mod.ROUTES.clear()
 
     def read_launches():
-        return {name: c for counts in counters for name, c in counts.items()}
+        """Every kernel's count; "field_ew" is kernel A's three ops together."""
+        out = {name: c for counts in counters for name, c in counts.items()}
+        out["field_ew"] = sum(out[op] for op in field_ew.OPS)
+        return out
 
     def read_routes():
         return {f"{site}:{route}": cnt for (site, route), cnt in sorted(msm_mod.ROUTES.items())}
@@ -799,6 +978,22 @@ def main() -> int:
         return {name: after[name] - before.get(name, 0) for name in after}
 
     k14_kernels = [*ntt_cg.LAUNCHES, *msm_bucket.LAUNCHES]
+    ew_kernels = ["field_ew", "fold_program"]  # kernels A and B, on every proof path
+    csrc_kernels = [name for counts in counters[:5] for name in counts]  # kernels 1-10
+
+    # ---- kernel A: elementwise product, sum and difference, every modulus
+    # and broadcast pattern at 2^20 elements, bit for bit ----
+    t0 = time.perf_counter()
+    ew = field_ew_path(dev, 20261020)
+    ptxas_ew = _build.ptxas_usage("field_ew")
+    require(all(u.get("spill_bytes") == 0 for u in ptxas_ew.values()), f"field_ew.cu spills: {ptxas_ew}")
+    errs["field_ew"] = 0
+    report["field_ew"] = dict(
+        route="cuda", source="halo2_tpu_torch/csrc/field_ew.cu", replaces="halo2_tpu/ops/field_jax.py:75",
+        library_ms=None, **ew["ops"]["mont_mul"], ops=ew["ops"],
+        registers={name: u["registers"] for name, u in ptxas_ew.items()})
+    emit({"phase": "field_ew", **ew, "ptxas": ptxas_ew, "seconds": time.perf_counter() - t0})
+
     k16_kernels = list(msm_sorted.LAUNCHES)
     tool_kernels = list(tile_bench.LAUNCHES)
 
@@ -1011,7 +1206,7 @@ def main() -> int:
         "tile_mul": ptxas["mul_kernel<1>"]["registers"],
         "tile_padd": ptxas["padd_kernel<1,1>"]["registers"],
     }
-    mul = mont_mul_instrs(fctx.p_int)
+    mul = product_s(fctx.p_int)
     for name, kern, plain, nbytes, muls, replaces, per in (
         ("tile_mul", lambda: tile_bench.tile_mul(tiles["a"], tiles["b"], fctx),
          lambda: tile_bench.tile_mul_plain(tiles["a"], tiles["b"], fctx), 3 * 64 * n,
@@ -1036,7 +1231,7 @@ def main() -> int:
     # the one every operations bound assumes
     lat = profile_kernels.oplat(256, device=dev)
     emit({"phase": "op_latency", "cycles_per_op": {op: lat[op] for op in tile_bench.OPS},
-          "int32_mul_per_s": {"assumed": INT32_MUL_PER_S,
+          "int32_mul_per_s": {"bounds_take": MUL_RATES,
                               **{form: lat[f"{form}_per_s"] for form in tile_bench.PEAK_FORMS}},
           "exact": True})
 
@@ -1123,11 +1318,12 @@ def main() -> int:
         # highest occupied bucket down; the first of each is a copy
         top = (occ * torch.arange(1, B, device=dev)).amax(-1)
         fold_adds = int((occ.sum(-1) - 1).clamp(min=0).sum() + (top - 1).clamp(min=0).sum())
-        mul = mont_mul_instrs(bctx.p_int)
+        mul, mul_cc = product_s(bctx.p_int, "generic"), product_s(bctx.p_int)  # kernels 2, 3; 4
         emit({"phase": "msm_work", "curve": bcurve.__name__, "n": n, "M": M, "c": c,
               "nonzero_digits": int(nz.sum()), "accum_adds": accum_adds, "fold_adds": fold_adds,
               "bucket_occupancy": float(occ.float().mean()),
-              "mont_mul_instrs": mul})
+              "product_mix": {"generic": product_mix(bctx.p_int, "generic"),
+                              "cc": product_mix(bctx.p_int)}})
         timings = {
             "msm_accum": (
                 lambda: msm_bucket.msm_accum(scal_t, db.px, db.py, c, nwin, T, bcc),
@@ -1147,7 +1343,7 @@ def main() -> int:
                 lambda: msm_bucket.msm_lane_reduce(fk, bcc),
                 rp_ms,
                 4 * (fk.numel() + rk.numel()),
-                mul * FULL_ADD_PRODUCTS * (T - 1) * rows,
+                mul_cc * FULL_ADD_PRODUCTS * (T - 1) * rows,
                 "halo2_tpu/ops/msm_pallas.py:357",
             ),
         }
@@ -1198,7 +1394,9 @@ def main() -> int:
     t3 = time.perf_counter()
     reset_records()
     tr = Blake2bWrite(Vesta)
-    create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+    caps14 = []
+    with fold_capture(caps14):
+        create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
     proof = tr.finalize()
     torch.cuda.synchronize()
     t4 = time.perf_counter()
@@ -1218,12 +1416,32 @@ def main() -> int:
     except (OpeningError, TranscriptError):
         rejected = True
     require(rejected, "k=14 proof with a flipped byte was accepted")
-    for name in k14_kernels:
+    for name in k14_kernels + ew_kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the k=14 path")
     require(launches["mr_col_ntt"] == 0, "kernel 8 ran on the default (NTT unset) k=14 path")
     emit({"phase": "main_path", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
           "proof_bytes": len(proof), "verified": True, "flipped_byte_rejected": True,
           "stages": stages, "prove_spans": prove_stages, "launches": launches})
+
+    # ---- kernel B: every part of the k = 14 proof's quotient against the
+    # plain program and the eager fold, bit for bit; part 0 timed ----
+    t0 = time.perf_counter()
+    fold14 = fold_check("k14", caps14)
+    del caps14
+    ptxas_fold = _build.ptxas_usage("fold")
+    emit({"phase": "fold", "path": "k14", "parts": fold14, "ptxas": ptxas_fold,
+          "seconds": time.perf_counter() - t0})
+    part0 = fold14[0]
+    slot_class = next(c for c in fold_ops.SLOT_CLASSES if c >= part0["live_slots"])
+    errs["fold_program"] = 0
+    report["fold_program"] = dict(
+        route="cuda", source="halo2_tpu_torch/csrc/fold.cu", replaces="halo2_tpu/plonk/evaluation.py:412",
+        library_ms=None, **{key: part0[key] for key in ("ms", "device_ms", "plain_ms", "eager_ms", "bound_ms",
+                                                        "bound_by", "instructions", "live_slots")},
+        shape=f"k=14 part 0: {part0['rows']} rows, clusters {part0['clusters']}",
+        ptxas=ptxas_fold.get(f"fold_kernel<{slot_class},1>"))
+    fold_paths = {"k14": [{key: r[key] for key in ("part", "instructions", "live_slots", "columns")}
+                          for r in fold14]}
 
     # ---- the same proof again, warm; its launches are those of one proof ----
     zero_launches()
@@ -1321,29 +1539,42 @@ def main() -> int:
     # check on the card (no kernel of csrc/ runs: limb arithmetic in torch) ----
     zero_launches()
     mock = mock_path(dev, k, 1000)
-    require(not any(read_launches().values()), "mock14 launched a kernel")
-    emit({"phase": "mock14", "card": smi, **mock})
+    require(not any(read_launches()[name] for name in csrc_kernels), "mock14 launched one of kernels 1-10")
+    emit({"phase": "mock14", "card": smi, **mock, "launches": read_launches()})
 
     # ---- poseidon11: gating config 2 (the Poseidon gadget at k = 11) ----
     k11, circ11, instances11, seed11 = poseidon_k11()
     zero_launches()
+    caps = []
     poseidon = proof_path(dev, read_launches, read_routes, "poseidon11", k11, circ11, instances11, seed11,
-                          POSEIDON_K11_PROOF_SHA256, wrong=[[(instances11[0][0] + 1) % Fp.MODULUS]])
+                          POSEIDON_K11_PROOF_SHA256, wrong=[[(instances11[0][0] + 1) % Fp.MODULUS]],
+                          fold_caps=caps)
     launches_poseidon = poseidon["launches"]
     for name in k14_kernels:
         require(launches_poseidon[name] > 0, f"kernel {name} was not launched on the poseidon11 path")
     emit({"phase": "poseidon11", "circuit": "HashCircuit([7, 11])", "card": smi, **poseidon})
+    t0 = time.perf_counter()
+    rows = fold_check("poseidon11", caps)
+    del caps
+    fold_paths["poseidon11"] = rows
+    emit({"phase": "fold", "path": "poseidon11", "parts": rows, "seconds": time.perf_counter() - t0})
 
     # ---- sinsemilla14: gating config 4 (the Sinsemilla hash at k = 14),
     # with a third, traced proof; sinsemilla11: the same circuit at k = 11,
     # to the bytes of the port's plain path on the CPU ----
     zero_launches()
+    caps = []
     sinsemilla = proof_path(dev, read_launches, read_routes, "sinsemilla14", *sinsemilla_k14(),
-                            SINSEMILLA_K14_PROOF_SHA256, wrapped=wrapped_k14)
+                            SINSEMILLA_K14_PROOF_SHA256, wrapped=wrapped_k14, fold_caps=caps)
     launches_sinsemilla = sinsemilla["launches"]
     for name in k14_kernels:
         require(launches_sinsemilla[name] > 0, f"kernel {name} was not launched on the sinsemilla14 path")
     emit({"phase": "sinsemilla14", "circuit": "SinsemillaCircuit (3 words)", "card": smi, **sinsemilla})
+    t0 = time.perf_counter()
+    rows = fold_check("sinsemilla14", caps)
+    del caps
+    fold_paths["sinsemilla14"] = rows
+    emit({"phase": "fold", "path": "sinsemilla14", "parts": rows, "seconds": time.perf_counter() - t0})
     zero_launches()
     sinsemilla11 = proof_path(dev, read_launches, read_routes, "sinsemilla11", *sinsemilla_k11(),
                               SINSEMILLA_K11_PROOF_SHA256)
@@ -1354,8 +1585,9 @@ def main() -> int:
     sha_fixture = os.path.join(ROOT, "tests", "fixtures_torch_sha256.json")
     sha_vk = json.load(open(sha_fixture)).get("vk_k17_transcript_repr") if os.path.exists(sha_fixture) else None
     zero_launches()
+    caps = []
     sha = proof_path(dev, read_launches, read_routes, "sha256_k17", *sha256_k17(), SHA256_K17_PROOF_SHA256,
-                     warm=False, vk_repr=sha_vk)
+                     warm=False, vk_repr=sha_vk, fold_caps=caps, fold_limit=1)
     launches_sha = sha["launches"]
     for name in k14_kernels + k16_kernels:
         require(launches_sha[name] > 0, f"kernel {name} was not launched on the sha256_k17 path")
@@ -1364,20 +1596,26 @@ def main() -> int:
           "rng_seed": "05" * 32, "sorted_overflows": sum(
               c for key, c in sha["routes_by_stage"]["verify"].items() if key.endswith(":overflow")),
           **sha})
+    t0 = time.perf_counter()
+    rows = fold_check("sha256_k17", caps)  # part 0 only, every cluster, at 2^17 rows
+    del caps
+    fold_paths["sha256_k17"] = rows
+    emit({"phase": "fold", "path": "sha256_k17", "parts": rows, "seconds": time.perf_counter() - t0})
 
     # ---- sha256_mock: MockProver on one SHA-256 block at k = 17, its
     # vectorised check on the card (no kernel of csrc/) ----
     zero_launches()
     sha_mock = sha256_mock_path(dev)
-    require(not any(read_launches().values()), "sha256_mock launched a kernel")
-    emit({"phase": "sha256_mock", "card": smi, **sha_mock})
+    require(not any(read_launches()[name] for name in csrc_kernels),
+            "sha256_mock launched one of kernels 1-10")
+    emit({"phase": "sha256_mock", "card": smi, **sha_mock, "launches": read_launches()})
 
     # ---- ecc_mock: MockProver on the ECC and Merkle gadgets, its
     # vectorised check on the card (no kernel of csrc/) ----
     zero_launches()
     ecc_mock = ecc_mock_path(dev)
-    require(not any(read_launches().values()), "ecc_mock launched a kernel")
-    emit({"phase": "ecc_mock", "card": smi, **ecc_mock})
+    require(not any(read_launches()[name] for name in csrc_kernels), "ecc_mock launched one of kernels 1-10")
+    emit({"phase": "ecc_mock", "card": smi, **ecc_mock, "launches": read_launches()})
 
     # ---- NTT=pallas: the k = 14 path with every basis change on kernel 8 ----
     pinned = vk.pinned_repr()
@@ -1750,11 +1988,21 @@ def main() -> int:
         top = (occ * torch.arange(1, nb + 1, device=dev)).amax(-1)
         fold_adds = int(((occ.sum(-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum())
         horner_adds, horner_dbls = 15, 15 * 16
-        mul = mont_mul_instrs(sctx_b.p_int)
+        mul = product_s(sctx_b.p_int, "generic")  # kernels 5 and 6 take fe_mul
+        # kernel 7: (doublings + additions) x HORNER_ROUNDS products in
+        # series on one warp, which issues at most one instruction a cycle, so
+        # each takes at least its multiply instructions' cycles. The chain
+        # latency of oplat (x <- x * b on one thread) is reported beside it:
+        # kernel 7's rounds overlap a product with its late operand's arrival,
+        # and on BN254 it ran under 765 such latencies, so that is no bound.
+        series = (horner_dbls + horner_adds) * HORNER_ROUNDS
+        cycles = lat["fe_mul_cc_pasta" if product_mix(sctx_b.p_int)[1] == 24 else "fe_mul_cc"]
         work = {
             "msm_sorted_accum": mul * MIXED_ADD_PRODUCTS * accum_mixed,
             "msm_sorted_fold": mul * (MIXED_ADD_PRODUCTS * side_mixed + FULL_ADD_PRODUCTS * fold_adds),
-            "msm_sorted_horner": mul * (FULL_ADD_PRODUCTS * horner_adds + DOUBLE_PRODUCTS * horner_dbls),
+            "msm_sorted_horner": max(
+                product_s(sctx_b.p_int) * (FULL_ADD_PRODUCTS * horner_adds + DOUBLE_PRODUCTS * horner_dbls),
+                series * sum(product_mix(sctx_b.p_int)) / SM_CLOCK_HZ),
         }
         emit({"phase": "msm_sorted", "curve": tag, "n": n, "exact": True, "host_checked": True,
               "msm_host_s": host_s, "nonzero_digits": int(gcnt.sum()),
@@ -1762,7 +2010,9 @@ def main() -> int:
               "max_lane": int(gcnt[:, : msm_sorted.LANES].max()), "caps": classes,
               "occupied_buckets": int(occ.sum()), "accum_mixed_adds": accum_mixed,
               "fold_side_mixed_adds": side_mixed, "fold_adds": fold_adds,
-              "horner_adds": horner_adds, "horner_doublings": horner_dbls, "mont_mul_instrs": mul,
+              "horner_adds": horner_adds, "horner_doublings": horner_dbls,
+              "horner_products_in_series": series, "horner_issue_ms": series * sum(product_mix(sctx_b.p_int))
+              / SM_CLOCK_HZ * 1e3, "horner_latency_ms": series * cycles / SM_CLOCK_HZ * 1e3,
               "seconds": time.perf_counter() - t0})
         inputs = 4 * (entries.numel() + gstart.numel() + 2 * n * 16)
         timings = {
@@ -1853,6 +2103,12 @@ def main() -> int:
     paths.update({name: ("k16", launches16, sorted_proof_ms) for name in k16_kernels})
     paths["mr_col_ntt"] = ("k14 NTT=pallas", launches_mr, {"mr_col_ntt": mr_proof_ms})
     paths.update({name: ("profile_kernels tilemul", tile_launches, {}) for name in tool_kernels})
+    paths.update({name: ("k14", launches, traced14["kernels_traced_ms"]) for name in ew_kernels})
+    for path, counts in (("k14", launches), ("k16", launches16), ("kzg14", launches_kzg),
+                         ("poseidon11", launches_poseidon), ("sinsemilla14", launches_sinsemilla),
+                         ("sha256_k17", launches_sha), ("mesh14", launches_mesh14)):
+        for name in ew_kernels:
+            require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
     kernels = []
     for name, rec in report.items():
         path, counts, per_proof = paths[name]
@@ -1874,9 +2130,17 @@ def main() -> int:
                         "launches_sinsemilla14": launches_sinsemilla[name],
                         "launches_k14_msm_sorted": launches_sorted14[name],
                         "launches_sha256_k17": launches_sha[name],
-                        "launches_mesh14": launches_mesh14[name]})
+                        "launches_mesh14": launches_mesh14[name],
+                        "launches_k16": launches16[name], "launches_kzg14": launches_kzg[name],
+                        **({"launches_by_op": {path: {op: c[op] for op in field_ew.OPS} for path, c in (
+                            ("k14", launches), ("k16", launches16), ("kzg14", launches_kzg),
+                            ("poseidon11", launches_poseidon), ("sinsemilla14", launches_sinsemilla),
+                            ("sha256_k17", launches_sha), ("mesh14", launches_mesh14))},
+                            "ops": rec["ops"], "registers": rec["registers"]} if name == "field_ew" else {}),
+                        **({"eager_ms": rec["eager_ms"], "ptxas": rec["ptxas"], "programs": fold_paths}
+                           if name == "fold_program" else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
-    require(len(report) == 10, "ten kernels")
+    require(len(report) == 12, "ten kernels and kernels A and B")
     require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),
             "kernels 1-7 each have a BN254 row")
     emit({"kernels": kernels})

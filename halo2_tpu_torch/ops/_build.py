@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench")
+SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench", "field_ew", "fold")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -118,8 +118,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def ptxas_usage(name: str, defines: Tuple[str, ...] = ()) -> Dict[str, dict]:
-    """Registers and spill bytes (stores and loads) of each kernel of the
-    library `load(name, ..., defines)` loads, read from its build's
+    """Registers, spill bytes (stores and loads) and stack frame bytes (the
+    thread's local memory) of each kernel of the library `load(name, ..., defines)` loads, read from its build's
     `-Xptxas -v` output (log_path); raises if that build left none."""
     log = log_path(name, defines)
     if not log.exists():
@@ -138,6 +138,9 @@ def ptxas_usage(name: str, defines: Tuple[str, ...] = ()) -> Dict[str, dict]:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 usage[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                usage[kernel]["stack_bytes"] = int(m.group(1))
     return usage
 
 

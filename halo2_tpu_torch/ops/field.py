@@ -18,9 +18,13 @@ carry. Comparisons against p or 2p never read a wrapped sign bit: they add
 the two's complement of the constant and read the carry out of the top
 digit.
 
-These are the plain tensor ops the prover runs on whatever device its
-tensors live on; the hand-written CUDA kernels carry their own copy of the
-arithmetic in `csrc/field.cuh`.
+These are the plain versions (`mont_mul_plain`, `add_mod_plain`,
+`sub_mod_plain`) of kernel A: the public `mont_mul`, `add_mod` and
+`sub_mod` launch it (`ops/field_ew.py`, `csrc/field_ew.cu`) for a CUDA
+tensor and run the plain version for a CPU tensor, and raise for any other
+device; every other function here is built on those three. The
+hand-written CUDA kernels carry their own copy of the arithmetic in
+`csrc/field.cuh`.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..fields import FieldElement
+from . import _build, field_ew
 
 NLIMBS = 16
 LIMB_BITS = 16
@@ -274,30 +279,50 @@ def _mont_mul32(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
-    """Montgomery product REDC(a*b) on the lazy domain [0, 2p)."""
+    """Montgomery product REDC(a*b) on the lazy domain [0, 2p): kernel A on
+    the card, mont_mul_plain on the CPU."""
+    if _build.on_card(a, "mont_mul"):
+        return field_ew.launch("mont_mul", a, b, ctx)
+    return mont_mul_plain(a, b, ctx)
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
     a32, b32 = torch.broadcast_tensors(_to32(a), _to32(b))
     return _to16(_mont_mul32(a32, b32, ctx))
 
 
 def from_mont(a: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
-    """Montgomery -> canonical (< p): REDC against 1, then reduce mod p."""
-    one = torch.zeros(8, dtype=I64, device=a.device)
+    """Montgomery -> canonical (< p): REDC against 1 (the product by the
+    limb vector 1), then reduce mod p."""
+    one = torch.zeros(NLIMBS, dtype=I32, device=a.device)
     one[0] = 1
-    a32 = _to32(a)
-    r = _mont_mul32(a32, one.expand_as(a32), ctx)  # <= p
+    r = _to32(mont_mul(a, one, ctx))  # <= p
     return _to16(_reduce(F.pad(r, (0, 1)), 0, "neg_p", ctx))
 
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
-    """(a + b) on the lazy domain: result < 2p."""
+    """(a + b) on the lazy domain: result < 2p. Kernel A on the card,
+    add_mod_plain on the CPU."""
+    if _build.on_card(a, "add_mod"):
+        return field_ew.launch("add_mod", a, b, ctx)
+    return add_mod_plain(a, b, ctx)
+
+
+def add_mod_plain(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
     s = F.pad(_to32(a) + _to32(b), (0, 1))
     return _to16(_reduce(s, 0, "neg_twop", ctx))
 
 
 def sub_mod(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
-    """(a - b) on the lazy domain: a - b + 2p, reduced below 2p.
+    """(a - b) on the lazy domain: a - b + 2p, reduced below 2p. Kernel A on
+    the card, sub_mod_plain on the CPU."""
+    if _build.on_card(a, "sub_mod"):
+        return field_ew.launch("sub_mod", a, b, ctx)
+    return sub_mod_plain(a, b, ctx)
 
-    -b is written as 2^288 - b = (~b over 9 digits) + 1, so every column
+
+def sub_mod_plain(a: torch.Tensor, b: torch.Tensor, ctx: FieldCtx) -> torch.Tensor:
+    """-b is written as 2^288 - b = (~b over 9 digits) + 1, so every column
     stays non-negative; the 2^288 it adds is dropped by `_reduce`."""
     a32, b32 = torch.broadcast_tensors(_to32(a), _to32(b))
     cols = a32 + ctx.k("twop", a32.device) + (M32 - b32)

@@ -10,8 +10,12 @@ powers of y in exactly the verifier's expression order
 Counterpart of `halo2_tpu/plonk/evaluation.py`. The default engine is the
 fork's memory-optimized *part-wise* walk with constraint clusters and
 `need_to_compute` part skipping (evaluation.rs:394-975); `EVAL_H=full`
-selects the plain full extended-domain fold (the equivalence oracle). Each
-fold runs eagerly as tensor code on the proving key's device.
+selects the plain full extended-domain fold (the equivalence oracle). The
+part-wise and the row-sharded engines' fold (`make_fold`) runs, on the card,
+as one launch of kernel B a part (`ops/fold.py`: the fold's walk recorded
+once as a program, as `jax.jit` traces `fold_fn` at
+`halo2_tpu/plonk/evaluation.py:412`), and on the CPU eagerly as tensor
+code; the full fold runs eagerly on kernel A's field ops.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..poly import EXTENDED, LAGRANGE, FVec, Polynomial
+from ..ops.fold import Fold
 from ..ops.ntt import powers
 from .expression import ADVICE, FIXED, Expression
 
@@ -257,30 +262,24 @@ class Evaluator:
             needed_idx = tuple(sorted(needed))
             max_exp = max((N - gi for gi, *_ in active), default=0)
 
-            def fold_fn(arrays, coset_x_vals, scal):
-                dev = coset_x_vals.device  # the fold runs where its rows lie
-                vecs: Dict[int, FVec] = {i: FVec(F, arrays[i]) for i in arrays}
-                coset_x = FVec(F, coset_x_vals)
-                y_s = FVec(F, scal["y"])
-                beta_s = FVec(F, scal["beta"])
-                gamma_s = FVec(F, scal["gamma"])
-                theta_s = FVec(F, scal["theta"])
-                ch_s = [FVec(F, c) for c in scal["ch"]]
-
-                one_s = FVec(F, domain.ctx.const(1, dev))  # (NLIMBS,) scalar 1
-                y_pows = [one_s]
+            def walk(vecs, coset_x, sc, const_vec):
+                """The fold of every active item over vector-like values:
+                FVecs in the eager fold, ops/fold.py's recording stand-ins
+                when the program for kernel B is recorded. `vecs` maps a
+                poly index to its column, `sc` holds the scalars y, beta,
+                gamma, theta, ch and one, `const_vec(c)` is the constant c
+                on every row. Returns {cluster: value}."""
+                y_pows = [sc.one]
                 for _ in range(max_exp):
-                    y_pows.append(y_pows[-1] * y_s)
+                    y_pows.append(y_pows[-1] * sc.y)
+                beta_s, gamma_s, theta_s, ch_s = sc.beta, sc.gamma, sc.theta, sc.ch
 
-                def rot(vec: FVec, r: int) -> FVec:
+                def rot(vec, r: int):
                     return vec.rotate(r * rot_scale)
-
-                def const_vec(c: int) -> FVec:
-                    return FVec.fill(F, n_rows, c, dev)
 
                 one = const_vec(1)
 
-                def eval_expr(expr: Expression, entry) -> FVec:
+                def eval_expr(expr: Expression, entry):
                     return expr.evaluate(
                         constant=lambda c: const_vec(c),
                         selector=lambda s: (_ for _ in ()).throw(
@@ -300,7 +299,7 @@ class Evaluator:
                         scaled=lambda a, f: a * F(f),
                     )
 
-                def item_value(kind, proof_idx, aux) -> FVec:
+                def item_value(kind, proof_idx, aux):
                     entry = layout[proof_idx]
                     if kind == "gate":
                         return eval_expr(aux, entry)
@@ -359,15 +358,37 @@ class Evaluator:
                         * (a_prime - rot(a_prime, -1))
                     )
 
-                acc: Dict[int, Optional[FVec]] = {}
+                acc: Dict[int, object] = {}
                 for gi, kind, proof_idx, aux, cluster in active:
                     v = item_value(kind, proof_idx, aux) * y_pows[N - gi]
                     acc[cluster] = v if acc.get(cluster) is None else acc[cluster] + v
+                return acc
+
+            def fold_fn(arrays, coset_x_vals, scal):
+                """The eager fold: the walk on FVecs with the field ops."""
+                dev = coset_x_vals.device  # the fold runs where its rows lie
+                sc = SimpleNamespace(
+                    y=FVec(F, scal["y"]), beta=FVec(F, scal["beta"]),
+                    gamma=FVec(F, scal["gamma"]), theta=FVec(F, scal["theta"]),
+                    ch=[FVec(F, c) for c in scal["ch"]],
+                    one=FVec(F, domain.ctx.const(1, dev)),  # (NLIMBS,) scalar 1
+                )
+                acc = walk({i: FVec(F, arrays[i]) for i in arrays}, FVec(F, coset_x_vals), sc,
+                           lambda c: FVec.fill(F, n_rows, c, dev))
                 return {c: a.vals for c, a in acc.items()}
 
-            return fold_fn, needed_idx
+            return Fold(F, walk, fold_fn, needed_idx, num_ch), needed_idx
 
-        return SimpleNamespace(poly_list=poly_list, fold_for=make_fold, L=L)
+        folds: Dict[int, tuple] = {}
+
+        def fold_for(c_lo: int):
+            """make_fold(c_lo), made once per c_lo (its program is recorded at
+            its first call on the card, as jax.jit traces at its first call)."""
+            if c_lo not in folds:
+                folds[c_lo] = make_fold(c_lo)
+            return folds[c_lo]
+
+        return SimpleNamespace(poly_list=poly_list, fold_for=fold_for, L=L)
 
     def _rotation_reach(self):
         """(back, ahead): the most base-domain rows any constraint item reads

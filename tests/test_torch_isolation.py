@@ -13,6 +13,9 @@ import torch
 from halo2_tpu_torch.circuits import MulCircuit
 from halo2_tpu_torch.curves import Vesta
 from halo2_tpu_torch.dev.mock_prover import MockProver
+from halo2_tpu_torch.fields import Fp
+from halo2_tpu_torch.ops import field as fo
+from halo2_tpu_torch.ops import fold as fold_ops
 from halo2_tpu_torch.ops import msm_bucket, msm_sorted, ntt_mr, tile_bench
 from halo2_tpu_torch.ops.curve import CurveCtx
 from halo2_tpu_torch.poly.ipa import ParamsIPA, resolve_device
@@ -37,6 +40,7 @@ def test_importing_every_port_module_loads_no_jax():
         "sinsemilla_fused", "sinsemilla_merkle", "sha256")} <= set(mods)
     assert {f"halo2_tpu_torch.parallel{m}" for m in (
         "", ".context", ".ntt", ".msm", ".quotient")} <= set(mods)
+    assert {"halo2_tpu_torch.ops.field_ew", "halo2_tpu_torch.ops.fold"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -127,3 +131,14 @@ def test_slice_three_wrappers_refuse_other_devices():
         tile_bench.tile_mul(rows, rows, ctx)
     with pytest.raises(ValueError, match="unsupported device"):
         tile_bench.tile_padd(rows, rows, rows, rows, rows, cc)
+
+
+def test_kernels_a_and_b_refuse_other_devices():
+    ctx = fo.FieldCtx(Fp)
+    rows = torch.empty((8, 16), dtype=torch.int32, device="meta")
+    for op in (fo.mont_mul, fo.add_mod, fo.sub_mod):
+        with pytest.raises(ValueError, match="unsupported device"):
+            op(rows, rows, ctx)
+    prog = fold_ops.record(Fp, lambda vecs, x, sc, const: {0: vecs[0] * x + sc.y}, (0,), 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fold_ops.run_program(prog, [rows], rows, torch.empty((6, 16), dtype=torch.int32, device="meta"))

@@ -244,8 +244,8 @@ ptxas info    : Used 142 registers, used 0 barriers
         _build.ptxas_usage("tile_bench")  # no log for the current source: no numbers
     _build.log_path("tile_bench").write_text(log)
     assert _build.ptxas_usage("tile_bench") == {
-        "padd_kernel<1,1>": {"spill_bytes": 12, "registers": 128},
-        "tile_padd_kernel": {"spill_bytes": 0, "registers": 142},
+        "padd_kernel<1,1>": {"spill_bytes": 12, "registers": 128, "stack_bytes": 0},
+        "tile_padd_kernel": {"spill_bytes": 0, "registers": 142, "stack_bytes": 0},
     }
     with pytest.raises(FileNotFoundError):  # another build's log is not this one's
         _build.ptxas_usage("tile_bench", ("TILE_MUL_THREADS=128",))
