@@ -11,7 +11,10 @@ each of the four moduli at 2^20 elements with the edge values 0, 1, p - 1,
 prover gives it; kernel B, the quotient fold of one part, bit for bit
 against the plain program and the eager fold on every part of the first
 k = 14, poseidon11 and sinsemilla14 proofs and on part 0 of the sha256_k17
-proof, timed on k = 14's part 0; both launched on every proof path) (the bucket MSM's kernels 2-4 at both
+proof, each part's scalar table one launch of kernel B equal to the plain
+one, part 0 of each timed beside its bound, with each program's bundles,
+slots and launch geometry and kernel B's ptxas lines, whose stack frames
+must be empty; both launched on every proof path) (the bucket MSM's kernels 2-4 at both
 window widths: c = 4 at M = 3, n = 2^14 + 1 and c = 8 at M = 2, n = 2^15,
 each MSM also against msm_host, kernel 4 bit for bit, also on parts that hold
 the identity, a pair P, P and a pair P, -P; kernel 1 bit for bit at every
@@ -518,14 +521,27 @@ def fold_capture(caps, limit=None):
         fold_mod.Fold.__call__ = original
 
 
+# what the kernels line keeps of each part's fold row
+FOLD_ROW_KEYS = ("part", "rows", "instructions", "operations", "bundles", "mean_width", "live_slots",
+                 "columns",
+                 "threads_per_block", "shared_bytes_per_block", "scalar_table_launches", "device_ms",
+                 "bound_ms", "x_bound", "scalar_table_device_ms")
+
+
 def fold_check(tag, caps, timed_parts=1):
     """Kernel B's output of each captured part against run_program_plain (the
     same program with the plain field ops) and the eager fold (the walk on
-    FVecs, kernel A), bit for bit. Returns a row a part: the program's
-    instructions, live slots and columns, the plain and eager times (one
-    call each, CUDA events), and for the first `timed_parts` parts kernel
-    B's ms, device ms and bound. The launches the comparisons make are taken
-    back out of the counts."""
+    FVecs, kernel A), bit for bit, and the part's scalar table, one launch of
+    kernel B and no launch of kernel A on the card, against scalar_table's
+    plain path on the CPU. Returns a row a part: the program's recorded
+    instructions, kernel B's operations (the recording's less its leaves,
+    which the operations read where they lie), bundles and their mean width,
+    live slots, columns, threads and shared bytes a block, the scalar
+    table's launches, the plain and eager times
+    (one call each, CUDA events), and for the first `timed_parts` parts
+    kernel B's ms, device ms, bound and x bound, and the scalar table's
+    device ms. The launches the comparisons make are taken back out of the
+    counts."""
     from halo2_tpu_torch.ops import field_ew
     from halo2_tpu_torch.ops import fold as fold_mod
 
@@ -534,7 +550,15 @@ def fold_check(tag, caps, timed_parts=1):
     for i, (f, arrays, cx, scal, out) in enumerate(caps):
         prog = f.program
         cols = [arrays[j] for j in prog.array_ids]
+        launches = (fold_mod.LAUNCHES["fold_program"], sum(field_ew.LAUNCHES.values()))
         table = fold_mod.scalar_table(prog, scal, cx.device)
+        table_launches = fold_mod.LAUNCHES["fold_program"] - launches[0]
+        require(table_launches == 1 and sum(field_ew.LAUNCHES.values()) == launches[1],
+                f"{tag} part {i}: the scalar table took {table_launches} launches of kernel B "
+                f"and {sum(field_ew.LAUNCHES.values()) - launches[1]} of kernel A, not one and none")
+        cpu_scal = {k: ([t.cpu() for t in v] if k == "ch" else v.cpu()) for k, v in scal.items()}
+        require(torch.equal(table.cpu(), fold_mod.scalar_table(prog, cpu_scal, "cpu")),
+                f"{tag} part {i}: kernel B's scalar table != scalar_table's plain path")
         plain, plain_ms = once_ms(lambda: fold_mod.run_program_plain(prog, cols, cx, table))
         eager, eager_ms = once_ms(lambda: f.eager(arrays, cx, scal))
         require(list(out) == list(plain) == list(eager), f"{tag} part {i}: the clusters differ")
@@ -543,21 +567,29 @@ def fold_check(tag, caps, timed_parts=1):
             require(torch.equal(out[c], eager[c]), f"{tag} part {i} cluster {c}: kernel B != the eager fold")
         counts = prog.counts()
         n = cx.shape[0]
-        row = dict(part=i, rows=n, clusters=list(prog.clusters), instructions=len(prog.instrs),
-                   counts=counts, live_slots=prog.slots, columns=len(prog.array_ids),
-                   scalars=len(prog.scalar_defs), exact=True, plain_ms=plain_ms, eager_ms=eager_ms)
+        threads, shared, blocks = fold_mod.launch_geometry(prog.slots, n)
+        row = dict(part=i, rows=n, clusters=list(prog.clusters), instructions=len(prog.vinstrs),
+                   operations=len(prog.instrs), bundles=len(prog.bundle_sizes),
+                   mean_width=len(prog.instrs) / len(prog.bundle_sizes),
+                   width=prog.width, counts=counts, live_slots=prog.slots, columns=len(prog.array_ids),
+                   threads_per_block=threads, shared_bytes_per_block=shared, blocks=blocks,
+                   scalars=len(prog.scalar_defs), scalar_table_launches=table_launches,
+                   scalar_program_bundles=len(prog.scalar_program.bundle_sizes), exact=True,
+                   plain_ms=plain_ms, eager_ms=eager_ms)
         if i < timed_parts:
             def run():
                 return fold_mod.run_program(prog, cols, cx, table)
 
-            # each column it loads read once, the coset points, each cluster
+            # each column it reads read once, the coset points, each cluster
             # written once, the program and the scalar table; a product a MUL a row
-            loaded = {a for op, _, a, _ in prog.instrs if op == fold_mod.LOAD}
-            nbytes = (64 * n * (len(loaded) + (counts["COSET_X"] > 0) + len(prog.clusters))
-                      + 16 * (len(prog.instrs) + 4 * len(prog.scalar_defs)))
+            nbytes = (64 * n * (len(prog.columns_read()) + (counts["COSET_X"] > 0) + len(prog.clusters))
+                      + fold_mod.RECORD_BYTES * len(prog.instrs) + 64 * len(prog.scalar_defs))
             b_ms, b_by = bound(nbytes, counts["MUL"] * n * product_s(f.field.MODULUS))
-            row.update(ms=time_ms(run), device_ms=device_ms(run, 5), bound_ms=b_ms, bound_by=b_by,
-                       products=counts["MUL"] * n)
+            dev_ms = device_ms(run, 5)
+            row.update(ms=time_ms(run), device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by,
+                       x_bound=dev_ms / b_ms, products=counts["MUL"] * n,
+                       scalar_table_device_ms=device_ms(
+                           lambda: fold_mod.scalar_table(prog, scal, cx.device), 5))
         rows.append(row)
     field_ew.LAUNCHES.update(saved[0])
     fold_mod.LAUNCHES.update(saved[1])
@@ -1428,20 +1460,28 @@ def main() -> int:
     t0 = time.perf_counter()
     fold14 = fold_check("k14", caps14)
     del caps14
+    # kernel B's -Xptxas -v lines: both instantiations (Pasta form or not)
+    # with an empty stack frame and no spills
     ptxas_fold = _build.ptxas_usage("fold")
+    ptxas_lines = [line.strip() for line in _build.log_path("fold").read_text().splitlines()
+                   if "fold_kernel" in line or "registers" in line or "stack frame" in line]
+    require(len(ptxas_fold) == 2 and all(u.get("stack_bytes") == 0 and u.get("spill_bytes") == 0
+                                         for u in ptxas_fold.values()),
+            f"fold.cu: a kernel B instantiation has a stack frame or spills: {ptxas_fold}")
     emit({"phase": "fold", "path": "k14", "parts": fold14, "ptxas": ptxas_fold,
+          "ptxas_lines": ptxas_lines, "bundle_width": fold_ops.BUNDLE_WIDTH,
           "seconds": time.perf_counter() - t0})
     part0 = fold14[0]
-    slot_class = next(c for c in fold_ops.SLOT_CLASSES if c >= part0["live_slots"])
     errs["fold_program"] = 0
     report["fold_program"] = dict(
         route="cuda", source="halo2_tpu_torch/csrc/fold.cu", replaces="halo2_tpu/plonk/evaluation.py:412",
-        library_ms=None, **{key: part0[key] for key in ("ms", "device_ms", "plain_ms", "eager_ms", "bound_ms",
-                                                        "bound_by", "instructions", "live_slots")},
+        library_ms=None, **{key: part0[key] for key in (
+            "ms", "device_ms", "plain_ms", "eager_ms", "bound_ms", "bound_by", "x_bound", "instructions",
+            "operations", "bundles", "mean_width", "live_slots", "threads_per_block", "shared_bytes_per_block",
+            "scalar_table_launches", "scalar_table_device_ms")},
         shape=f"k=14 part 0: {part0['rows']} rows, clusters {part0['clusters']}",
-        ptxas=ptxas_fold.get(f"fold_kernel<{slot_class},1>"))
-    fold_paths = {"k14": [{key: r[key] for key in ("part", "instructions", "live_slots", "columns")}
-                          for r in fold14]}
+        ptxas=ptxas_fold.get("fold_kernel<1>"))
+    fold_paths = {"k14": fold14}
 
     # ---- the same proof again, warm; its launches are those of one proof ----
     zero_launches()
@@ -2137,7 +2177,12 @@ def main() -> int:
                             ("poseidon11", launches_poseidon), ("sinsemilla14", launches_sinsemilla),
                             ("sha256_k17", launches_sha), ("mesh14", launches_mesh14))},
                             "ops": rec["ops"], "registers": rec["registers"]} if name == "field_ew" else {}),
-                        **({"eager_ms": rec["eager_ms"], "ptxas": rec["ptxas"], "programs": fold_paths}
+                        **({key: rec[key] for key in (
+                            "eager_ms", "ptxas", "x_bound", "operations", "bundles", "mean_width", "live_slots",
+                            "threads_per_block", "shared_bytes_per_block", "scalar_table_launches",
+                            "scalar_table_device_ms")} | {"programs": {
+                                path: [{key: r.get(key) for key in FOLD_ROW_KEYS} for r in rows]
+                                for path, rows in fold_paths.items()}}
                            if name == "fold_program" else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
     require(len(report) == 12, "ten kernels and kernels A and B")

@@ -12,10 +12,10 @@ fork's memory-optimized *part-wise* walk with constraint clusters and
 `need_to_compute` part skipping (evaluation.rs:394-975); `EVAL_H=full`
 selects the plain full extended-domain fold (the equivalence oracle). The
 part-wise and the row-sharded engines' fold (`make_fold`) runs, on the card,
-as one launch of kernel B a part (`ops/fold.py`: the fold's walk recorded
-once as a program, as `jax.jit` traces `fold_fn` at
-`halo2_tpu/plonk/evaluation.py:412`), and on the CPU eagerly as tensor
-code; the full fold runs eagerly on kernel A's field ops.
+as two launches of kernel B a part, its scalar table and the fold
+(`ops/fold.py`: the fold's walk recorded once as a program, as `jax.jit`
+traces `fold_fn` at `halo2_tpu/plonk/evaluation.py:412`), and on the CPU
+eagerly as tensor code; the full fold runs eagerly on kernel A's field ops.
 """
 
 from __future__ import annotations
@@ -401,15 +401,11 @@ class Evaluator:
         return max(0, -min(rotations)), max(0, max(rotations))
 
     def _scalar_inputs(self, challenges, y, beta, gamma, theta, dev=None):
-        ctx = self.domain.ctx
+        """The fold's scalar inputs in Montgomery form: rows of one
+        (4 + challenges, 16) tensor, sent to `dev` in one copy."""
         dev = self.domain.device if dev is None else dev
-        return {
-            "y": ctx.const(y, dev),
-            "beta": ctx.const(beta, dev),
-            "gamma": ctx.const(gamma, dev),
-            "theta": ctx.const(theta, dev),
-            "ch": [ctx.const(c, dev) for c in challenges],
-        }
+        t = self.domain.ctx.consts([y, beta, gamma, theta, *challenges], dev)
+        return {"y": t[0], "beta": t[1], "gamma": t[2], "theta": t[3], "ch": list(t[4:])}
 
     def evaluate_h_parts(
         self,

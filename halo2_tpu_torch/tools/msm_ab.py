@@ -4,7 +4,8 @@ kernels 1 and 8 and kernels 9-10; with `--tile`, kernels 9 and 10), so that
 two trees (a parent commit unpacked beside the checkout, and the checkout)
 can be read on one card in one run.
 
-    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--tile] [--sweep] [--proofs]
+    python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--tile] [--fold]
+                                            [--sweep] [--trace] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -74,6 +75,25 @@ shape and, with `--proofs`, per proof:
   each the registers and spills, and the device time of each kernel with
   its output checked against the default build's (kernel 9 on limbs, kernel
   10 on canonical values);
+- with `--fold`, in place of the bucket shapes: kernel B (the quotient
+  fold) on part 0 of the first proof of each of k14 (BenchCircuit at
+  k = 14), poseidon11, sinsemilla14 and sha256_k17, the fold's inputs
+  captured as chip_smoke.py's `fold_capture` captures them: the program's
+  instructions, products, live slots, columns and (trees that bundle them)
+  bundles, kernel B's median CUDA-event ms and device ms, its bound and
+  x bound (chip_smoke.py's formula, this checkout's copy for every tree),
+  the scalar table's device ms, the sha256 of kernel B's output limbs
+  (clusters in order), which must be equal on the parent and the change,
+  the proof's sha256 and prove seconds, and the launches of kernels A and B
+  inside the proof's "evaluate_h + vanishing" span; with `--sweep` (trees
+  whose scheduler has WINDOW), the k14 and sinsemilla14 programs scheduled
+  at every width of FOLD_WIDTH_SWEEP (each a build of csrc/fold.cu with
+  FOLD_WIDTH) and window of FOLD_WINDOW_SWEEP: bundles, live slots, device
+  ms and whether the output equals the default's bit for bit; with
+  `--trace`, the sha256_k17 proof's "evaluate_h + vanishing" span traced by
+  torch.profiler and cProfile: its wall seconds, device busy ms, the host's
+  share, the device ms of the kernels by name, the host ops' self CPU ms
+  and the port's Python functions by cumulative seconds;
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -85,9 +105,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import cProfile
 import hashlib
 import json
 import os
+import pstats
 import re
 import shutil
 import statistics
@@ -113,6 +135,10 @@ LEVEL_SWEEP = (32, 64, 128, 256, 512)
 # threads a block of kernel 4 (a row a block, 4 lanes an addition at the first level)
 LANE_REDUCE_SWEEP = (64, 128, 256)
 NTT_LOG_F_SWEEP = (6, 7, 8, 9)
+# kernel B's bundle widths (each a build of csrc/fold.cu with FOLD_WIDTH)
+# and the scheduler's lookahead windows
+FOLD_WIDTH_SWEEP = (2, 4, 8)
+FOLD_WINDOW_SWEEP = (32, 64, 128)
 # (kernel 9's, kernel 10's) (threads a block, min blocks an SM of
 # __launch_bounds__), one build of csrc/tile_bench.cu each; the default
 # build's are (256, 1) and (256, 2)
@@ -245,6 +271,203 @@ def sorted_section(params16, msm_bucket, msm_sorted, dev, rng, sweep: bool = Fal
                           "same_window_sums": affine(fold()) == wins, "ms": time_ms(fold)})
             finally:
                 msm_sorted.ACCUM_GEOMETRY, msm_sorted.FOLD_GEOMETRY = default
+
+
+def self_chip_smoke():
+    """This checkout's chip_smoke.py (its bound and capture helpers), loaded
+    by path, so that both trees are measured by one formula."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(HERE)), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_self", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class SpanLaunches:
+    """Wraps utils.measure.span: the kernel A and kernel B launches inside
+    each span named `name`, and with `profile`, a torch.profiler trace of
+    the first such span."""
+
+    def __init__(self, measure, field_ew, fold_mod, name, profile=False):
+        self.measure, self.field_ew, self.fold_mod = measure, field_ew, fold_mod
+        self.name, self.profile = name, profile
+        self.original = measure.span
+        self.counts = {"field_ew": 0, "fold_program": 0}
+        self.prof, self.wall_s, self.host_profile = None, None, None
+
+    def read(self):
+        return sum(self.field_ew.LAUNCHES.values()), self.fold_mod.LAUNCHES["fold_program"]
+
+    def __enter__(self):
+        outer = self
+
+        class Span:
+            def __init__(self, name, *args, **kwargs):
+                self.inner = outer.original(name, *args, **kwargs)
+                self.mine = name == outer.name
+
+            def __enter__(self):
+                if self.mine:
+                    if outer.profile and outer.prof is None:
+                        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                        self.prof = torch.profiler.profile(activities=acts)
+                        self.cprof = cProfile.Profile()
+                        torch.cuda.synchronize()
+                        self.prof.__enter__()
+                        self.cprof.enable()
+                        self.t0 = time.perf_counter()
+                    self.before = outer.read()
+                return self.inner.__enter__()
+
+            def __exit__(self, *exc):
+                out = self.inner.__exit__(*exc)
+                if self.mine:
+                    after = outer.read()
+                    outer.counts["field_ew"] += after[0] - self.before[0]
+                    outer.counts["fold_program"] += after[1] - self.before[1]
+                    if getattr(self, "prof", None) is not None:
+                        torch.cuda.synchronize()
+                        outer.wall_s = time.perf_counter() - self.t0
+                        self.cprof.disable()
+                        self.prof.__exit__(None, None, None)
+                        outer.prof = self.prof
+                        outer.host_profile = host_functions(self.cprof)
+                return out
+
+        self.measure.span = Span
+        return self
+
+    def __exit__(self, *exc):
+        self.measure.span = self.original
+
+
+def trace_summary(prof, wall_s: float, spans, top: int = 15) -> dict:
+    """A quotient stage's trace: wall seconds, device busy ms (every kernel
+    and copy on the card; the spans' annotations on the device's timeline,
+    named as in `spans`, left out), the host's share of the wall time, the
+    device ms of the kernels by name, and the spans' and host ops' self CPU
+    ms (a span's self time is host work in no torch op)."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and e.name not in spans]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_kernel = collections.Counter()
+    launches = collections.Counter()
+    for e in dev:
+        by_kernel[e.name] += e.time_range.elapsed_us() / 1e3
+        launches[e.name] += 1
+    host = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host[e.key] += e.self_cpu_time_total / 1e3
+    return {"wall_s": wall_s, "device_events": len(dev), "device_busy_ms": busy_ms,
+            "host_share": 1 - busy_ms / 1e3 / wall_s,
+            "device_ms_by_kernel": [(k[:120], v, launches[k]) for k, v in by_kernel.most_common(top)],
+            "host_self_cpu_ms": [(k[:120], v) for k, v in host.most_common(top)]}
+
+
+def host_functions(cprof, top: int = 20) -> list:
+    """The port's Python functions by cumulative seconds in a cProfile run:
+    (file:line function, calls, cumulative s, own s)."""
+    stats = pstats.Stats(cprof).stats
+    rows = [(f"{os.path.relpath(fn, os.path.dirname(os.path.dirname(HERE)))}:{line} {name}", cc, ct, tt)
+            for (fn, line, name), (cc, _nc, tt, ct, _callers) in stats.items()
+            if "halo2_tpu_torch" in fn]
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
+def fold_section(dev, sweep: bool = False, trace: bool = False) -> None:
+    """Kernel B on the part-0 folds of the first k14, poseidon11,
+    sinsemilla14 and sha256_k17 proofs (see the module's docstring)."""
+    from halo2_tpu_torch import circuits
+    from halo2_tpu_torch.curves import Vesta
+    from halo2_tpu_torch.ops import field_ew
+    from halo2_tpu_torch.ops import fold as fold_mod
+    from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
+    from halo2_tpu_torch.plonk.prover import create_proof
+    from halo2_tpu_torch.poly.ipa import ParamsIPA
+    from halo2_tpu_torch.transcript import Blake2bWrite
+    from halo2_tpu_torch.utils import measure
+    from halo2_tpu_torch.utils.chacha import ChaCha20Rng
+
+    cs = self_chip_smoke()
+    workloads = (("k14", (14, circuits.bench_circuit_for_k(14), [], b"\x2a" * 32)),
+                 ("poseidon11", circuits.poseidon_k11()), ("sinsemilla14", circuits.sinsemilla_k14()),
+                 ("sha256_k17", circuits.sha256_k17()))
+    for tag, (k, circ, instances, seed) in workloads:
+        params = ParamsIPA.cached(Vesta, k, device=dev)
+        vk = keygen_vk(params, circ.without_witnesses())
+        pk = keygen_pk(params, vk, circ.without_witnesses())
+        caps = []
+        profile = trace and tag == "sha256_k17"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SpanLaunches(measure, field_ew, fold_mod, "evaluate_h + vanishing", profile) as quotient, \
+                cs.fold_capture(caps, 1):
+            tr = Blake2bWrite(Vesta)
+            create_proof(params, pk, [circ], [instances], ChaCha20Rng(seed), tr)
+            proof = tr.finalize()
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        f, arrays, cx, scal, out = caps[0]
+        prog = f.program
+        cols = [arrays[j] for j in prog.array_ids]
+        table = fold_mod.scalar_table(prog, scal, cx.device)
+        n = cx.shape[0]
+        counts = prog.counts()
+        if hasattr(prog, "columns_read"):
+            loaded = prog.columns_read()
+        else:  # the parent's program: a LOAD instruction a column read
+            loaded = {a for op, _, a, _ in prog.instrs if op == fold_mod.LOAD}
+        recorded = getattr(prog, "vinstrs", prog.instrs)
+        nbytes = (64 * n * (len(loaded) + (counts["COSET_X"] > 0) + len(prog.clusters))
+                  + 16 * (len(recorded) + 4 * len(prog.scalar_defs)))
+        bound_ms, bound_by = cs.bound(nbytes, counts["MUL"] * n * cs.product_s(f.field.MODULUS))
+
+        def limbs_sha(res):
+            return hashlib.sha256(torch.stack([res[c] for c in prog.clusters]).cpu().numpy().tobytes()).hexdigest()
+
+        def run(p=prog):
+            return fold_mod.run_program(p, cols, cx, table)
+
+        dms = device_ms(run, 5)
+        sizes = getattr(prog, "bundle_sizes", None)
+
+        def table_call():
+            return fold_mod.scalar_table(prog, scal, cx.device)
+
+        # the parent's table (kernel A on (16,) tensors) copies its constants
+        # from the host, which a CUDA graph cannot capture
+        table_dms = device_ms(table_call, 5) if hasattr(prog, "scalar_program") else None
+        emit({"fold": tag, "rows": n, "clusters": list(prog.clusters), "instructions": len(recorded),
+              "operations": len(prog.instrs),
+              "mul": counts["MUL"], "live_slots": prog.slots, "columns": len(prog.array_ids),
+              "bundles": len(sizes) if sizes else None, "width": getattr(prog, "width", None),
+              "ms": time_ms(run), "device_ms": dms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "x_bound": dms / bound_ms, "scalar_table_ms": time_ms(table_call),
+              "scalar_table_device_ms": table_dms,
+              "out_limbs_sha256": limbs_sha(out), "rerun_same": limbs_sha(run()) == limbs_sha(out),
+              "proof_sha256": hashlib.sha256(proof).hexdigest(), "prove_s": prove_s,
+              "quotient_span_launches": quotient.counts})
+        if quotient.prof is not None:
+            spans = measure.get_records()
+            emit({"trace": tag, "span": "evaluate_h + vanishing",
+                  **trace_summary(quotient.prof, quotient.wall_s, set(spans)),
+                  "host_functions": quotient.host_profile, "spans_s": spans})
+        if sweep and hasattr(fold_mod, "WINDOW") and tag in ("k14", "sinsemilla14"):
+            default = fold_mod.WINDOW
+            try:
+                for width in FOLD_WIDTH_SWEEP:
+                    for window in FOLD_WINDOW_SWEEP:
+                        fold_mod.WINDOW = window
+                        p = prog.with_width(width)
+                        emit({"sweep": "fold", "fold": tag, "width": width, "window": window,
+                              "bundles": len(p.bundle_sizes), "live_slots": p.slots,
+                              "same_output": limbs_sha(run(p)) == limbs_sha(out),
+                              "device_ms": device_ms(lambda: run(p), 5)})
+            finally:
+                fold_mod.WINDOW = default
 
 
 def ntt_section(dev, rng, sweep: bool = False) -> None:
@@ -449,6 +672,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tile", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--proofs", action="store_true")
+    ap.add_argument("--fold", action="store_true")
+    ap.add_argument("--trace", action="store_true")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("msm_ab: CUDA is not available", file=sys.stderr)
@@ -479,6 +704,9 @@ def main(argv=None) -> int:
         ("k14_commit", (1 << 14) + 1, 3, params14.g + [params14.w]),
         ("c8_M2", 1 << 15, 2, params14.g + params14.g_lagrange),
     )
+    if ns.fold:
+        fold_section(dev, ns.sweep, ns.trace)
+        bucket_shapes = ()
     if ns.ntt:
         ntt_section(dev, np.random.default_rng(20261018), ns.sweep)
         bucket_shapes = ()

@@ -7,7 +7,8 @@ layout and the constraint system), and every part's fold (each c_lo) runs
 on seeded random columns of 64 rows: `run_program_plain` of the recorded
 program equals the eager walk bit for bit, at the part-wise engine's
 rotations and at the row-sharded engine's (rotations scaled by the number
-of parts). MulCircuit (k = 4, also as a batch of two proofs), BenchCircuit
+of parts), with the instructions scheduled into bundles of 1, 2, 4 (the
+default) and 8. MulCircuit (k = 4, also as a batch of two proofs), BenchCircuit
 (k = 8), HashCircuit (k = 7) and SinsemillaCircuit (k = 11) have their
 selectors compressed from a synthesis, as keygen compresses them;
 ShaCircuit's real assignment needs the 2^16-row spread table at k = 17, so
@@ -94,23 +95,29 @@ def fold_inputs(fold, seed, n_rows=ROWS, device="cpu"):
     return arrays, coset_x, scal
 
 
-def check_fold(fold, seed, n_rows=ROWS):
+WIDTHS = (1, 2, fold_ops.BUNDLE_WIDTH, 8)
+_EAGER = {}  # (fold id, seed, rows) -> the eager fold's output, shared by the widths' cases
+
+
+def check_fold(fold, seed, n_rows=ROWS, width=fold_ops.BUNDLE_WIDTH):
     arrays, coset_x, scal = fold_inputs(fold, seed, n_rows)
-    prog = fold.program
-    eager = fold(arrays, coset_x, scal)  # CPU tensors: the eager walk
+    prog = fold.program if width == fold.program.width else fold.program.with_width(width)
+    assert prog.width == width and max(prog.bundle_sizes) <= width
+    key = (id(fold), seed, n_rows)
+    if key not in _EAGER:
+        _EAGER[key] = (fold, fold(arrays, coset_x, scal))  # CPU tensors: the eager walk
+    eager = _EAGER[key][1]
     table = fold_ops.scalar_table(prog, scal, "cpu")
     plain = fold_ops.run_program_plain(prog, [arrays[i] for i in prog.array_ids], coset_x, table)
     assert list(plain) == list(eager) == list(prog.clusters)
     for c in eager:
         assert plain[c].shape == (n_rows, 16)
         assert torch.equal(plain[c], eager[c]), f"cluster {c}"
-    # the slots the program writes are the ones it later reads
+    # the slots the program reads are ones it wrote before
     live = set()
-    for op, d, a, b in prog.instrs:
-        if op in (fold_ops.ADD, fold_ops.SUB, fold_ops.MUL):
-            assert {a, b} <= live
-        elif op in (fold_ops.NEG, fold_ops.ACC):
-            assert a in live
+    for op, d, a, b, am, _, bm, _ in prog.instrs:
+        for v, mode in ((a, am), (b, bm))[:1 if op in (fold_ops.NEG, fold_ops.ACC) else 2]:
+            assert mode != fold_ops.SLOT or v in live
         if op != fold_ops.ACC:
             assert 0 <= d < prog.slots
             live.add(d)
@@ -127,24 +134,39 @@ CIRCUITS = {
 KINDS = set()
 
 
+_MACHINERY = {}
+
+
+def machinery(name, mesh):
+    """fold_machinery of CIRCUITS[name], made once per engine for the widths' cases."""
+    if (name, mesh) not in _MACHINERY:
+        circuit, k, proofs = CIRCUITS[name]
+        _MACHINERY[name, mesh] = fold_machinery(circuit, k, proofs, mesh=mesh)
+    return _MACHINERY[name, mesh]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("mesh", [False, True], ids=["parts", "mesh"])
 @pytest.mark.parametrize("name", list(CIRCUITS))
-def test_program_equals_the_eager_fold_on_every_part(name, mesh):
-    circuit, k, proofs = CIRCUITS[name]
-    mach, kinds, L = fold_machinery(circuit, k, proofs, mesh=mesh)
+def test_program_equals_the_eager_fold_on_every_part(name, mesh, width):
+    k = CIRCUITS[name][1]
+    mach, kinds, L = machinery(name, mesh)
     KINDS.update(kinds)
     for c_lo in range(L + 1):
         fold, needed = mach.fold_for(c_lo)
         assert fold.needed_idx == needed and mach.fold_for(c_lo)[0] is fold  # made once per c_lo
-        prog = check_fold(fold, seed=100 * c_lo + k)
+        prog = check_fold(fold, seed=100 * c_lo + k, width=width)
         assert prog.counts()["ACC"] == len(prog.clusters) and min(prog.clusters) >= c_lo
 
 
-def test_sha256_program_equals_the_eager_fold():
-    mach, kinds, L = fold_machinery(circuits.ShaCircuit(None, 1), 17, synthesize=False)
+@pytest.mark.parametrize("width", WIDTHS)
+def test_sha256_program_equals_the_eager_fold(width):
+    if "sha" not in _MACHINERY:
+        _MACHINERY["sha"] = fold_machinery(circuits.ShaCircuit(None, 1), 17, synthesize=False)
+    mach, kinds, L = _MACHINERY["sha"]
     KINDS.update(kinds)
     assert L == 3
-    prog = check_fold(mach.fold_for(0)[0], seed=17)
+    prog = check_fold(mach.fold_for(0)[0], seed=17, width=width)
     assert prog.counts()["MUL"] > 50 and sorted(prog.clusters) == [1, 2, 3]
 
 
@@ -172,7 +194,10 @@ def test_recorder_slots_scalars_and_rotation():
     defs = prog.scalar_defs
     assert ("const", 2) in defs and (fold_ops.MUL, defs.index(("const", 2)), defs.index(("input", "y", -1))) in defs
     assert defs.count(("const", 2)) == 1 and len(set(defs)) == len(defs)
-    assert prog.counts()["LOAD"] == 2 and prog.slots <= 4
+    # in bundles of one, the recording's order, and at most the four slots
+    # of a linear scan over the recording
+    assert prog.counts()["LOAD"] == 2 and prog.with_width(1).slots <= 4
+    assert prog.with_width(1).bundle_sizes == [1] * len(prog.instrs)
     rng = np.random.default_rng(5)
     arrays, cx = [lazy(rng, (ROWS,)) for _ in range(2)], lazy(rng, (ROWS,))
     scal = {name: lazy(rng, ()) for name in ("y", "beta", "gamma", "theta")}
@@ -209,7 +234,7 @@ def test_kernel_b_equals_the_plain_program_on_the_card():
                 before = fold_ops.LAUNCHES["fold_program"]
                 got = fold(arrays, cx, scal)
                 torch.cuda.synchronize()
-                assert fold_ops.LAUNCHES["fold_program"] == before + 1
+                assert fold_ops.LAUNCHES["fold_program"] == before + 2  # the scalar table, the fold
                 want = fold_ops.run_program_plain(prog, cols, cx, table)
                 eager = fold.eager(arrays, cx, scal)
                 for c in want:
