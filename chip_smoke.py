@@ -2,10 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the twelve CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
+Builds the sixteen CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
-main path's shapes and times both (kernel A, the elementwise Montgomery
-product, sum and difference of ops/field.py on the card, bit for bit on
+main path's shapes and times both (kernels C-F, the JAX package's jitted
+scans, evaluations, Kate division and IPA rounds, as values mod p with
+every output in [0, 2p) on each of the four moduli, each call of a kernel
+under torch.cuda.set_sync_debug_mode("error"), so that a host sync inside
+raises: kernel C's prefix products, inclusive, exclusive and exclusive
+from an init, and batch inversion at 2^11, 2^14 + 3 and 2^17 rows with
+0 and p (inverted to 0), 1, p - 1 and 2p - 1 first; kernel D's batch
+evaluation at M = 3 (a repeated point and the point 0) and at the largest
+evaluation stack of the k = 14 proof, and its powers of one point and of
+a batch of two; kernel E's Kate division at b = 0, 1, p - 1 and a random
+b; kernel F's emit and fold in every round of an opening over 2^14 lanes,
+m = 2^14 down to 2; each timed on Fp at 2^14 beside its bound, C-F each
+launched on every proof path but F on the KZG one (phases scan,
+batch_eval, kate_div, ipa_round), and the launches of one proof on each
+path in phase launches_per_proof; kernel A, the
+elementwise Montgomery product, sum and difference of ops/field.py on
+the card, bit for bit on
 each of the four moduli at 2^20 elements with the edge values 0, 1, p - 1,
 2p - 1, and 2p and 2p + d on Pasta, and on every broadcast pattern the
 prover gives it; kernel B, the quotient fold of one part, bit for bit
@@ -291,16 +306,23 @@ def timed(name, fn, log):
     return run
 
 
-KERNEL_SYMBOLS = {"cg_ntt_level": "cg_level_kernel", "msm_accum": "accum_kernel(",
-                  "msm_fold": "fold_kernel(", "msm_lane_reduce": "lane_reduce_kernel<",
-                  "field_ew": "ew_kernel<", "fold_program": "fold_kernel<"}
+# the device kernels of each kernel of the port, by a part of their symbols
+KERNEL_SYMBOLS = {"cg_ntt_level": ("cg_level_kernel",), "msm_accum": ("accum_kernel(",),
+                  "msm_fold": ("fold_kernel(",), "msm_lane_reduce": ("lane_reduce_kernel<",),
+                  "field_ew": ("ew_kernel<",), "fold_program": ("fold_kernel<",),
+                  "scan": ("run_product_kernel<", "scan_carry_kernel<", "scan_apply_kernel<",
+                           "invert_carry_kernel<", "invert_apply_kernel<"),
+                  "batch_eval": ("power_table_kernel<", "eval_kernel<", "eval_sum_kernel"),
+                  "kate_div": ("kate_run_kernel<", "kate_carry_kernel<", "kate_apply_kernel<"),
+                  "ipa_round": ("round_emit_kernel<", "round_tail_kernel<", "round_update_kernel<")}
 
 
 def traced_proof(prove, wrapped):
     """prove() once, each (module, name) of `wrapped` timed by CUDA events
     and every kernel on the card traced by torch.profiler: (its result,
     {profiled_prove_s, device_events, device_busy_ms, kernels_event_ms,
-    kernels_traced_ms})."""
+    kernels_traced_ms, kernels_traced_launches}); the last two give each
+    kernel of KERNEL_SYMBOLS its device time and its device kernels."""
     event_log = []
     originals = {name: getattr(mod, name) for mod, name in wrapped}
     for mod, name in wrapped:
@@ -318,11 +340,15 @@ def traced_proof(prove, wrapped):
     for name, start, end in event_log:
         event_ms[name] += start.elapsed_time(end)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events if sym in e.name) / 1e3
-                 for name, sym in KERNEL_SYMBOLS.items()}
+    traced_ms = {name: sum(e.time_range.elapsed_us() for e in dev_events
+                           if any(sym in e.name for sym in syms)) / 1e3
+                 for name, syms in KERNEL_SYMBOLS.items()}
+    traced_launches = {name: sum(1 for e in dev_events if any(sym in e.name for sym in syms))
+                       for name, syms in KERNEL_SYMBOLS.items()}
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
     return out, dict(profiled_prove_s=profiled_s, device_events=len(dev_events), device_busy_ms=busy_ms,
-                     kernels_event_ms=event_ms, kernels_traced_ms=traced_ms)
+                     kernels_event_ms=event_ms, kernels_traced_ms=traced_ms,
+                     kernels_traced_launches=traced_launches)
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -521,6 +547,25 @@ def fold_capture(caps, limit=None):
         fold_mod.Fold.__call__ = original
 
 
+@contextmanager
+def eval_capture(shapes):
+    """Inside the block, each launch of kernel D's evaluation
+    (ops/polyeval.eval_launch) appends its (M, n, Q) to `shapes`."""
+    from halo2_tpu_torch.ops import polyeval
+
+    original = polyeval.eval_launch
+
+    def launch(coeffs, xtab, sel, ctx):
+        shapes.append((coeffs.shape[0], coeffs.shape[1], xtab.shape[0]))
+        return original(coeffs, xtab, sel, ctx)
+
+    polyeval.eval_launch = launch
+    try:
+        yield
+    finally:
+        polyeval.eval_launch = original
+
+
 # what the kernels line keeps of each part's fold row
 FOLD_ROW_KEYS = ("part", "rows", "instructions", "operations", "bundles", "mean_width", "live_slots",
                  "columns",
@@ -658,6 +703,279 @@ def field_ew_path(dev, seed: int, log_n: int = 20):
     field_ew.LAUNCHES.update(saved)
     return dict(n=n, checks=len(checks), exact=True, patterns=sorted({c.split(":")[1] for c in checks}),
                 moduli=["Fp", "Fq", "FrBn", "FqBn"], ops=timing)
+
+
+MODULI = ("Fp", "Fq", "FrBn", "FqBn")
+
+
+def lazy_rows(rng, p: int, n: int, edge=()):
+    """(n, 16) int32 limbs on the CPU of values uniform below 2p (lazy
+    Montgomery values, from rng), the `edge` values in the first rows."""
+    from halo2_tpu_torch.ops.field import ints_to_limbs
+
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    limbs[:, 15] %= (2 * p) >> 240
+    edge = list(edge)[:n]
+    if edge:
+        limbs[: len(edge)] = ints_to_limbs(edge)
+    return torch.as_tensor(limbs.astype(np.int32))
+
+
+@contextmanager
+def no_sync(dev):
+    """Inside the block a host sync with the card raises
+    (torch.cuda.set_sync_debug_mode("error")); nothing on the CPU."""
+    if torch.device(dev).type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def values_equal(got, want, ctx) -> bool:
+    """Equal values mod p, and `got` in the lazy domain [0, 2p)."""
+    from halo2_tpu_torch.ops.field import _to32, from_mont
+
+    got, want = got.reshape(-1, 16), want.reshape(-1, 16)
+    d = _to32(got)
+    two = ctx.k("twop", got.device)
+    differ = d != two
+    top = torch.where(differ, torch.arange(8, device=d.device), -1).amax(-1)
+    below = (d < two).gather(-1, top.clamp(min=0)[:, None])[:, 0] & (top >= 0)
+    return bool(below.all()) and torch.equal(from_mont(got, ctx), from_mont(want, ctx))
+
+
+@contextmanager
+def counts_kept(*modules):
+    """The launch counts of `modules` as they were before the block: the
+    launches a comparison makes are taken back out."""
+    saved = [dict(m.LAUNCHES) for m in modules]
+    try:
+        yield
+    finally:
+        for m, counts in zip(modules, saved):
+            m.LAUNCHES.clear()
+            m.LAUNCHES.update(counts)
+
+
+def kernel_row(fn, plain, nbytes: int, products: int, p: int, shape: str, reps: int = 10):
+    """ms and device ms of fn(), the plain version's ms, and the bound of
+    `nbytes` and `products` Montgomery products mod p."""
+    b_ms, b_by = bound(nbytes, products * product_s(p))
+    dev_ms = device_ms(fn, reps)
+    return dict(ms=time_ms(fn), device_ms=dev_ms, plain_ms=time_ms(plain, 2), bound_ms=b_ms,
+                bound_by=b_by, x_bound=dev_ms / b_ms, products=products, bytes=nbytes, shape=shape)
+
+
+def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed_n=1 << 14):
+    """Kernel C against its plain version, as values mod p with the output
+    in [0, 2p): the inclusive and exclusive prefix products (the latter with
+    and without init) and batch_invert on each modulus at each of `sizes`,
+    the values 0, p (both zeros of batch_invert, which must come out as 0),
+    1, p - 1 and 2p - 1 in the first rows, each call of the kernel under
+    no_sync; then each timed on Fp at `timed_n` rows."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, scan
+    from halo2_tpu_torch.ops.field import FieldCtx
+
+    rng = np.random.default_rng(seed)
+    checks = []
+    with counts_kept(scan, field_ew):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            for n in sizes:
+                x = lazy_rows(rng, p, n, [0, p, 1, p - 1, 2 * p - 1]).to(dev)
+                init = lazy_rows(rng, p, 1).to(dev)[0]
+                cases = {
+                    "prefix_product": (scan.prefix_product, scan.prefix_product_plain, ()),
+                    "exclusive": (scan.exclusive_prefix_product, scan.exclusive_prefix_product_plain, ()),
+                    "exclusive_init": (scan.exclusive_prefix_product,
+                                       scan.exclusive_prefix_product_plain, (init,)),
+                    "batch_invert": (scan.batch_invert, scan.batch_invert_plain, ()),
+                }
+                for case, (kern, plain, extra) in cases.items():
+                    with no_sync(dev):
+                        got = kern(x, ctx, *extra)
+                    require(values_equal(got, plain(x, ctx, *extra), ctx),
+                            f"scan {case} {name} n={n}: kernel != plain")
+                    checks.append(f"{name}:{n}:{case}")
+                    if case == "batch_invert":
+                        require(not bool(got[:2].any()), f"scan batch_invert {name}: 0 and p not inverted to 0")
+        ctx = FieldCtx(fields.Fp)
+        x = lazy_rows(rng, fields.Fp.MODULUS, timed_n).to(dev)
+        init = x[7]
+        n, p = timed_n, fields.Fp.MODULUS
+        shape = f"n=2^{n.bit_length() - 1} (Fp)"
+        timing = {
+            "prefix_product": kernel_row(lambda: scan.prefix_product(x, ctx),
+                                         lambda: scan.prefix_product_plain(x, ctx), 128 * n, n - 1, p, shape),
+            "exclusive_init": kernel_row(lambda: scan.exclusive_prefix_product(x, ctx, init),
+                                         lambda: scan.exclusive_prefix_product_plain(x, ctx, init),
+                                         128 * n + 64, n, p, shape),
+            # Montgomery's trick: 3 (n - 1) products, and the ladder's 254
+            # squarings and 127 products in series (p - 2 has 128 set bits on Fp)
+            "batch_invert": kernel_row(lambda: scan.batch_invert(x, ctx),
+                                       lambda: scan.batch_invert_plain(x, ctx), 128 * n,
+                                       3 * (n - 1) + 254 + bin(p - 2).count("1") - 1, p, shape),
+        }
+    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), exact_values=True,
+                no_sync=True, timing=timing)
+
+
+def batch_eval_path(dev, seed: int, eval_m: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17),
+                    timed_n=1 << 14):
+    """Kernel D against its plain versions, as values mod p with outputs in
+    [0, 2p), on each modulus at each of `sizes`, each call of the kernel
+    under no_sync: batch_eval_mont of M = 3 polynomials at two points (one
+    repeated, one of them 0) and of `eval_m` polynomials at four points,
+    coefficients below 2p with 0, p, p - 1 and 2p - 1 first; device_powers
+    of one point and of a (2,) batch. Then both timed on Fp at `timed_n`
+    rows: the evaluation at M = eval_m (the launches alone, on a table
+    already on the card) and the powers mode."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, polyeval
+    from halo2_tpu_torch.ops.field import FieldCtx
+
+    rng = np.random.default_rng(seed)
+    checks = []
+    with counts_kept(polyeval, field_ew):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            pts = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
+            for n in sizes:
+                for M, points in ((3, [pts[0], 0, pts[0]]), (eval_m, [pts[i % 4] for i in range(eval_m)])):
+                    c = lazy_rows(rng, p, M * n, [0, p, p - 1, 2 * p - 1]).reshape(M, n, 16).to(dev)
+                    with no_sync(dev):
+                        got = polyeval.batch_eval_mont(F, c, points)
+                    require(values_equal(got, polyeval.batch_eval_mont_plain(F, c, points), ctx),
+                            f"batch_eval_mont {name} M={M} n={n}: kernel != plain")
+                    checks.append(f"{name}:{n}:batch_eval:{M}")
+                x = lazy_rows(rng, p, 2, [pts[1]]).to(dev)
+                for xs in (x[0], x):
+                    with no_sync(dev):
+                        got = polyeval.device_powers(xs, n, ctx)
+                    require(values_equal(got, polyeval.device_powers_plain(xs, n, ctx), ctx),
+                            f"device_powers {name} n={n} lead={tuple(xs.shape[:-1])}: kernel != plain")
+                    checks.append(f"{name}:{n}:powers:{tuple(xs.shape[:-1])}")
+        F, n = fields.Fp, timed_n
+        p, ctx = F.MODULUS, FieldCtx(F)
+        shape = f"n=2^{n.bit_length() - 1} (Fp)"
+        points = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
+        points = [points[i % 4] for i in range(eval_m)]
+        c = lazy_rows(rng, p, eval_m * n).reshape(eval_m, n, 16).to(dev)
+        table, sel = polyeval.point_tables(ctx, points, n)
+        xtab, sel = torch.as_tensor(table, device=dev), torch.as_tensor(sel, device=dev)
+        x = lazy_rows(rng, p, 1).to(dev)[0]
+        timing = {
+            # coefficients and table read once, the evaluations written; one
+            # product a coefficient
+            "batch_eval": kernel_row(lambda: polyeval.eval_launch(c, xtab, sel, ctx),
+                                     lambda: polyeval.batch_eval_mont_plain(F, c, points),
+                                     64 * (eval_m * n + xtab.shape[0] * xtab.shape[1] + eval_m) + 4 * eval_m,
+                                     eval_m * n, p, f"M={eval_m} Q=4 {shape}"),
+            "powers": kernel_row(lambda: polyeval.device_powers(x, n, ctx),
+                                 lambda: polyeval.device_powers_plain(x, n, ctx), 64 * (n + 1), n - 1, p, shape),
+        }
+    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), eval_m=eval_m, exact_values=True,
+                no_sync=True, timing=timing)
+
+
+def kate_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed_n=1 << 14):
+    """Kernel E against its plain version, as values mod p with outputs in
+    [0, 2p) and the top coefficient 0, on each modulus at each of `sizes`,
+    coefficients below 2p with 0, p, p - 1 and 2p - 1 first, at b = 0, 1,
+    p - 1 and a random b, each call of the kernel under no_sync; then timed
+    on Fp at `timed_n` rows."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, polyeval
+    from halo2_tpu_torch.ops.field import FieldCtx
+
+    rng = np.random.default_rng(seed)
+    checks = []
+    with counts_kept(polyeval, field_ew):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            for n in sizes:
+                a = lazy_rows(rng, p, n, [0, p, p - 1, 2 * p - 1]).to(dev)
+                for b in (0, 1, p - 1, int(rng.integers(2, 1 << 62))):
+                    with no_sync(dev):
+                        got = polyeval.kate_division_mont(F, a, b)
+                    require(values_equal(got, polyeval.kate_division_mont_plain(F, a, b), ctx),
+                            f"kate_division_mont {name} n={n} b={b}: kernel != plain")
+                    require(not bool(got[-1].any()), f"kate_division_mont {name}: the top coefficient is not 0")
+                    checks.append(f"{name}:{n}:kate:{b}")
+        F, n = fields.Fp, timed_n
+        p, ctx = F.MODULUS, FieldCtx(F)
+        a, b = lazy_rows(rng, p, n).to(dev), int(rng.integers(2, 1 << 62))
+        timing = {"kate_div": kernel_row(lambda: polyeval.kate_division_mont(F, a, b),
+                                         lambda: polyeval.kate_division_mont_plain(F, a, b), 128 * n, n - 1, p,
+                                         f"n=2^{n.bit_length() - 1} (Fp)")}
+    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), exact_values=True, no_sync=True,
+                timing=timing)
+
+
+def ipa_round_path(dev, seed: int, log_n: int = 14):
+    """Kernel F against its plain version, as values mod p with outputs in
+    [0, 2p), on each modulus: every round of an opening over 2^log_n lanes,
+    m = n down to 2, emit and fold on the same inputs (the kernel's fold
+    output feeds the next round), each call of the kernel under no_sync.
+    Then both timed on Fp at m = n."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, ipa_round
+    from halo2_tpu_torch.ops.field import FieldCtx
+
+    rng = np.random.default_rng(seed)
+    n = 1 << log_n
+    rounds = 0
+    with counts_kept(ipa_round, field_ew):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            pp, b, s = (lazy_rows(rng, p, n, [0, p, p - 1, 2 * p - 1]).to(dev) for _ in range(3))
+            z, rands = (lazy_rows(rng, p, k, [2 * p - 1]).to(dev) for k in (1, 2))
+            m = n
+            while m >= 2:
+                u = int(rng.integers(2, 1 << 62))
+                um, uim = ctx.const(u, dev), ctx.const(pow(u, -1, p), dev)
+                with no_sync(dev):
+                    got = ipa_round.round_emit(pp, b, s, m, z[0], rands, ctx)
+                require(values_equal(got, ipa_round.round_emit_plain(pp, b, s, m, z[0], rands, ctx), ctx),
+                        f"ipa_round emit {name} m={m}: kernel != plain")
+                with no_sync(dev):
+                    folded = ipa_round.round_fold(pp, b, s, m, um, uim, ctx)
+                for t, want, what in zip(folded, ipa_round.round_fold_plain(pp, b, s, m, um, uim, ctx),
+                                         ("p'", "b", "s_mult")):
+                    require(values_equal(t, want, ctx), f"ipa_round fold {name} m={m} {what}: kernel != plain")
+                pp, b, s = folded
+                rounds += 1
+                m //= 2
+        F = fields.Fp
+        p, ctx = F.MODULUS, FieldCtx(F)
+        pp, b, s = (lazy_rows(rng, p, n).to(dev) for _ in range(3))
+        z, rands = lazy_rows(rng, p, 1).to(dev)[0], lazy_rows(rng, p, 2).to(dev)
+        um, uim = ctx.const(3, dev), ctx.const(pow(3, -1, p), dev)
+        shape = f"n=m=2^{log_n} (Fp)"
+        timing = {
+            # p', b, s_mult read, two rows of n + 2 written; a product a lane
+            # and two a lane of the first half
+            "emit": kernel_row(lambda: ipa_round.round_emit(pp, b, s, n, z, rands, ctx),
+                               lambda: ipa_round.round_emit_plain(pp, b, s, n, z, rands, ctx),
+                               64 * (3 * n + 2 * (n + 2) + 3), 2 * n + 2, p, shape),
+            # p', b, s_mult read and written; two products a lane of the first
+            # half, one a lane of the second
+            "fold": kernel_row(lambda: ipa_round.round_fold(pp, b, s, n, um, uim, ctx),
+                               lambda: ipa_round.round_fold_plain(pp, b, s, n, um, uim, ctx),
+                               64 * (6 * n + 2), n + n // 2, p, shape),
+        }
+    return dict(rounds=rounds, log_n=log_n, moduli=list(MODULI), exact_values=True, no_sync=True,
+                timing=timing)
 
 
 def planted_failure(prover, tag: str, plant, constraints: int, kind: str = "constraint"):
@@ -883,8 +1201,8 @@ def main() -> int:
                                           sha256_k17_message, sinsemilla_k11, sinsemilla_k14)
     from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
-    from halo2_tpu_torch.ops import (_build, field_ew, msm_bucket, msm_sorted, mxu_mont, ntt_cg, ntt_mr,
-                                     tile_bench)
+    from halo2_tpu_torch.ops import (_build, field_ew, ipa_round, msm_bucket, msm_sorted, mxu_mont, ntt_cg,
+                                     ntt_mr, polyeval, scan, tile_bench)
     from halo2_tpu_torch.ops import fold as fold_ops
     from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx, PointVec
@@ -989,7 +1307,8 @@ def main() -> int:
     report = {}
 
     counters = (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES, ntt_mr.LAUNCHES,
-                tile_bench.LAUNCHES, field_ew.LAUNCHES, fold_ops.LAUNCHES)
+                tile_bench.LAUNCHES, field_ew.LAUNCHES, fold_ops.LAUNCHES, scan.LAUNCHES,
+                polyeval.LAUNCHES, ipa_round.LAUNCHES)
 
     def zero_launches():
         for counts in counters:
@@ -1011,6 +1330,9 @@ def main() -> int:
 
     k14_kernels = [*ntt_cg.LAUNCHES, *msm_bucket.LAUNCHES]
     ew_kernels = ["field_ew", "fold_program"]  # kernels A and B, on every proof path
+    # kernels C-F: C, D and E on every proof path, F on every IPA path
+    jit_kernels = [*scan.LAUNCHES, *polyeval.LAUNCHES, *ipa_round.LAUNCHES]
+    kzg_jit_kernels = [*scan.LAUNCHES, *polyeval.LAUNCHES]
     csrc_kernels = [name for counts in counters[:5] for name in counts]  # kernels 1-10
 
     # ---- kernel A: elementwise product, sum and difference, every modulus
@@ -1426,8 +1748,8 @@ def main() -> int:
     t3 = time.perf_counter()
     reset_records()
     tr = Blake2bWrite(Vesta)
-    caps14 = []
-    with fold_capture(caps14):
+    caps14, eval_shapes = [], []
+    with fold_capture(caps14), eval_capture(eval_shapes):
         create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
     proof = tr.finalize()
     torch.cuda.synchronize()
@@ -1448,7 +1770,7 @@ def main() -> int:
     except (OpeningError, TranscriptError):
         rejected = True
     require(rejected, "k=14 proof with a flipped byte was accepted")
-    for name in k14_kernels + ew_kernels:
+    for name in k14_kernels + ew_kernels + jit_kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the k=14 path")
     require(launches["mr_col_ntt"] == 0, "kernel 8 ran on the default (NTT unset) k=14 path")
     emit({"phase": "main_path", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
@@ -1483,6 +1805,43 @@ def main() -> int:
         ptxas=ptxas_fold.get("fold_kernel<1>"))
     fold_paths = {"k14": fold14}
 
+    # ---- kernels C-F, a phase each: the scans, the evaluations and powers,
+    # Kate division and the IPA rounds against their plain versions on every
+    # modulus, edge inputs included, with no host sync inside; kernel D at
+    # the largest evaluation stack of the k = 14 proof ----
+    t0 = time.perf_counter()
+    eval_m = max(m for m, n_rows, _ in eval_shapes if n_rows == 1 << k)
+    scan_res = scan_path(dev, 20261021)
+    emit({"phase": "scan", **scan_res, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    eval_res = batch_eval_path(dev, 20261022, eval_m)
+    emit({"phase": "batch_eval", **eval_res, "eval_shapes_k14": sorted(set(eval_shapes)),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    kate_res = kate_path(dev, 20261025)
+    emit({"phase": "kate_div", **kate_res, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ipa_res = ipa_round_path(dev, 20261023)
+    emit({"phase": "ipa_round", **ipa_res, "seconds": time.perf_counter() - t0})
+    ptxas_jit = {name: _build.ptxas_usage(name) for name in ("scan", "polyeval", "ipa_round")}
+    require(all(u.get("spill_bytes") == 0 and u.get("stack_bytes") == 0
+                for usage in ptxas_jit.values() for u in usage.values()),
+            f"kernels C-F: a kernel spills or has a stack frame: {ptxas_jit}")
+    for name, source, replaces, row, more in (
+            ("scan", "scan.cu", "halo2_tpu/ops/scan.py:27", scan_res["timing"]["prefix_product"],
+             {"exclusive_init": scan_res["timing"]["exclusive_init"],
+              "batch_invert": scan_res["timing"]["batch_invert"]}),
+            ("batch_eval", "polyeval.cu", "halo2_tpu/ops/polyeval.py:71", eval_res["timing"]["batch_eval"],
+             {"powers": eval_res["timing"]["powers"]}),
+            ("kate_div", "polyeval.cu", "halo2_tpu/ops/polyeval.py:137", kate_res["timing"]["kate_div"], {}),
+            ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["emit"],
+             {"fold": ipa_res["timing"]["fold"]})):
+        errs[name] = 0  # values mod p equal the plain version's
+        report[name] = dict(route="cuda", source=f"halo2_tpu_torch/csrc/{source}", replaces=replaces,
+                            library_ms=None, **row, timing=more,
+                            registers={key: u["registers"]
+                                       for key, u in ptxas_jit[source[:-3]].items()})
+
     # ---- the same proof again, warm; its launches are those of one proof ----
     zero_launches()
     reset_records()
@@ -1492,8 +1851,9 @@ def main() -> int:
     require(tr.finalize() == proof, "warm k=14 proof bytes differ from the first")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_launches = read_launches()
     emit({"phase": "warm_k14", "prove_s": warm_s, "prove_spans": get_records(),
-          "launches": read_launches()})
+          "launches": warm_launches})
 
     # ---- device time of one warm proof: the four kernels by CUDA events,
     # every kernel on the card by torch.profiler ----
@@ -1629,6 +1989,7 @@ def main() -> int:
     sha = proof_path(dev, read_launches, read_routes, "sha256_k17", *sha256_k17(), SHA256_K17_PROOF_SHA256,
                      warm=False, vk_repr=sha_vk, fold_caps=caps, fold_limit=1)
     launches_sha = sha["launches"]
+    sha_proof_launches = sha["launches_by_stage"]["prove_1"]
     for name in k14_kernels + k16_kernels:
         require(launches_sha[name] > 0, f"kernel {name} was not launched on the sha256_k17 path")
     emit({"phase": "sha256_k17", "circuit": "ShaCircuit (14 blocks)", "card": smi,
@@ -1784,8 +2145,9 @@ def main() -> int:
     require(proof_again == proof_kzg, "profiled KZG k=14 proof bytes differ from the first")
     kzg_proof_ms = traced_kzg["kernels_event_ms"]
     busy_ms = traced_kzg["device_busy_ms"]
+    warm_kzg_launches = read_launches()
     emit({"phase": "device_time_kzg14", **traced_kzg, "prove_spans": get_records(),
-          "launches": read_launches(),
+          "launches": warm_kzg_launches,
           "device_busy_share_of_profiled_prove":
               None if busy_ms is None else busy_ms / 1e3 / traced_kzg["profiled_prove_s"]})
 
@@ -2143,12 +2505,28 @@ def main() -> int:
     paths.update({name: ("k16", launches16, sorted_proof_ms) for name in k16_kernels})
     paths["mr_col_ntt"] = ("k14 NTT=pallas", launches_mr, {"mr_col_ntt": mr_proof_ms})
     paths.update({name: ("profile_kernels tilemul", tile_launches, {}) for name in tool_kernels})
-    paths.update({name: ("k14", launches, traced14["kernels_traced_ms"]) for name in ew_kernels})
+    paths.update({name: ("k14", launches, traced14["kernels_traced_ms"]) for name in ew_kernels + jit_kernels})
     for path, counts in (("k14", launches), ("k16", launches16), ("kzg14", launches_kzg),
                          ("poseidon11", launches_poseidon), ("sinsemilla14", launches_sinsemilla),
                          ("sha256_k17", launches_sha), ("mesh14", launches_mesh14)):
-        for name in ew_kernels:
+        for name in ew_kernels + (kzg_jit_kernels if path == "kzg14" else jit_kernels):
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+    # the launches of one proof on each path: a warm one where the path
+    # makes one, else the first (sha256_k17, k16; mesh14: a proof on warm
+    # keys and its verify)
+    proof_launches = {"k14": warm_launches, "kzg14": warm_kzg_launches,
+                      "poseidon11": poseidon["launches_by_stage"]["prove_2"],
+                      "sinsemilla14": sinsemilla["launches_by_stage"]["prove_2"],
+                      "sinsemilla11": sinsemilla11["launches_by_stage"]["prove_2"],
+                      "sha256_k17": sha_proof_launches, "k16": stage_launches["prove"],
+                      "mesh14": launches_mesh14}
+    emit({"phase": "launches_per_proof", "card": smi,
+          "paths": {path: {name: counts[name] for name in (*field_ew.OPS, "field_ew", *ew_kernels[1:],
+                                                           *jit_kernels)}
+                    for path, counts in proof_launches.items()},
+          "traced_k14": {"device_events": traced14["device_events"], "device_busy_ms": traced14["device_busy_ms"],
+                         "kernels_traced_launches": traced14["kernels_traced_launches"],
+                         "kernels_traced_ms": traced14["kernels_traced_ms"]}})
     kernels = []
     for name, rec in report.items():
         path, counts, per_proof = paths[name]
@@ -2183,9 +2561,11 @@ def main() -> int:
                             "scalar_table_device_ms")} | {"programs": {
                                 path: [{key: r.get(key) for key in FOLD_ROW_KEYS} for r in rows]
                                 for path, rows in fold_paths.items()}}
-                           if name == "fold_program" else {})})
+                           if name == "fold_program" else {}),
+                        **({key: rec[key] for key in ("x_bound", "timing", "products", "bytes")}
+                           if name in jit_kernels else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
-    require(len(report) == 12, "ten kernels and kernels A and B")
+    require(len(report) == 16, "ten kernels and kernels A-F")
     require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),
             "kernels 1-7 each have a BN254 row")
     emit({"kernels": kernels})

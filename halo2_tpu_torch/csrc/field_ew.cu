@@ -5,9 +5,9 @@
 // (ctx.mul / ctx.add / ctx.sub, bodies mont_mul :182, add_mod :211 and
 // sub_mod :230), which XLA fuses into every program that calls them. In the
 // port they are ops/field.py's mont_mul, add_mod and sub_mod on CUDA
-// tensors: the prover's eager limb arithmetic (FVec's operators, the scans,
-// the polynomial evaluations, the grand products, the IPA rounds, the full
-// quotient fold, MockProver's vectorised check, the mesh's twiddle product).
+// tensors: the prover's eager limb arithmetic (FVec's operators, the grand
+// products' elementwise terms, the Horner fold, the full quotient fold,
+// MockProver's vectorised check, the mesh's twiddle product).
 //
 // One thread an element: its two operands are loaded as four 16-byte
 // vectors each from (..., 16) int32 limb tensors in the lazy domain

@@ -3,8 +3,9 @@
 Each source in `halo2_tpu_torch/csrc/` is compiled at first use with
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 into `build/` at the repository root. The library name carries a hash of the
-sources (and of any `-D` defines a variant is built with), so an edited
-kernel is rebuilt and an unchanged one is reused; nvcc's `-Xptxas -v` output
+source and of every header of `csrc/` (and of any `-D` defines a variant is
+built with), so an edited kernel is rebuilt and an unchanged one is reused;
+nvcc's `-Xptxas -v` output
 lies beside it under the same name, `.log` for `.so`. `build_all()` starts
 one nvcc per library at once and waits for all of them.
 """
@@ -26,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench", "field_ew", "fold")
+SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench", "field_ew", "fold", "scan",
+           "polyeval", "ipa_round")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -41,7 +43,7 @@ def _nvcc() -> str:
 
 def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "field.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(ARCH.encode())
     for d in defines:

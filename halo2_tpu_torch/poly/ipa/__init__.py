@@ -23,9 +23,10 @@ import torch
 from ...curves import Curve, Point
 from ...hash_to_curve import hash_to_curve
 from ...ops.field import NLIMBS, FieldCtx, add_mod, int_to_limbs, ints_to_limbs, mont_mul
+from ...ops.ipa_round import round_emit, round_fold
 from ...ops.msm import MSMBases, msm
 from ...ops.msm_bucket import msm_bucket_many
-from ...ops.polyeval import batch_eval_mont, device_powers, kate_division_mont, tree_sum
+from ...ops.polyeval import batch_eval_mont, device_powers, kate_division_mont
 from ...poly import FVec, eval_polynomial_host, lagrange_interpolate_host
 from ...utils.measure import span
 from ..commitment import Blind, ProverQuery, VerifierQuery, construct_intermediate_sets
@@ -292,50 +293,6 @@ class MSMIPA:
 # ---------------------------------------------------------------------------
 
 
-def _round_emit(pprime, b, s_mult, m: int, z_mont, rands, ctx: FieldCtx) -> torch.Tensor:
-    """-> (2, n+2, 16) Montgomery scalars over bases g ++ [u, w]:
-    row 0 = L_j (w_l coefficients, z*<p'_hi, b_lo> on u, l_rand on w),
-    row 1 = R_j. Lanes >= m of p' and b are zero."""
-    n = pprime.shape[0]
-    half = m // 2
-    lane = torch.arange(n, device=pprime.device)
-    j = lane & (m - 1)
-    hi = (j & half) != 0
-    zero = torch.zeros_like(s_mult)
-
-    def gat(v, idx):
-        return v[idx.clamp(0, n - 1)]
-
-    wl = torch.where(hi[:, None], zero, mont_mul(s_mult, gat(pprime, half + j), ctx))
-    wr = torch.where(hi[:, None], mont_mul(s_mult, gat(pprime, torch.where(hi, j - half, 0)), ctx),
-                     zero)
-    first = (lane < half)[:, None]
-    vl = torch.where(first, mont_mul(gat(pprime, lane + half), b, ctx), zero)
-    vr = torch.where(first, mont_mul(pprime, gat(b, lane + half), ctx), zero)
-    tail_l = torch.stack([mont_mul(z_mont, tree_sum(vl, ctx, 0), ctx), rands[0]])
-    tail_r = torch.stack([mont_mul(z_mont, tree_sum(vr, ctx, 0), ctx), rands[1]])
-    return torch.stack([torch.cat([wl, tail_l]), torch.cat([wr, tail_r])])
-
-
-def _round_fold(pprime, b, s_mult, m: int, u_mont, uinv_mont, ctx: FieldCtx):
-    """p' <- p'_lo + u^-1 p'_hi ; b <- b_lo + u b_hi ; s_mult <- u * s_mult on
-    lanes with the half-bit set."""
-    n = pprime.shape[0]
-    half = m // 2
-    lane = torch.arange(n, device=pprime.device)
-    idx = (lane + half).clamp(0, n - 1)
-    first = (lane < half)[:, None]
-    hi_sel = ((lane & half) != 0)[:, None]
-    zero = torch.zeros_like(pprime)
-    ppn = add_mod(pprime, mont_mul(pprime[idx], uinv_mont, ctx), ctx)
-    bn = add_mod(b, mont_mul(b[idx], u_mont, ctx), ctx)
-    return (
-        torch.where(first, ppn, zero),
-        torch.where(first, bn, zero),
-        torch.where(hi_sel, mont_mul(s_mult, u_mont, ctx), s_mult),
-    )
-
-
 def ipa_commit_open(params: ParamsIPA, rng, transcript, p_poly, p_blind: Blind, x_3: int):
     """The k-round inner product opening (commitment/prover.rs:29-153).
 
@@ -386,14 +343,14 @@ def ipa_commit_open(params: ParamsIPA, rng, transcript, p_poly, p_blind: Blind, 
     for _round in range(params.k):
         with span("ipa: round"):
             rands = ctx.consts([l_rand, r_rand], dev)
-            scal = _round_emit(pprime, b, s_mult, m, z_mont, rands, ctx)
+            scal = round_emit(pprime, b, s_mult, m, z_mont, rands, ctx)
             l_j, r_j = msm_bucket_many(scal, params._bases_guw)
         transcript.write_point(l_j)
         transcript.write_point(r_j)
 
         u_j = int(transcript.squeeze_challenge())
         u_j_inv = pow(u_j, -1, q)
-        pprime, b, s_mult = _round_fold(
+        pprime, b, s_mult = round_fold(
             pprime, b, s_mult, m, ctx.const(u_j, dev), ctx.const(u_j_inv, dev), ctx
         )
         f = (f + l_rand * u_j_inv + r_rand * u_j) % q

@@ -5,7 +5,7 @@ two trees (a parent commit unpacked beside the checkout, and the checkout)
 can be read on one card in one run.
 
     python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--tile] [--fold]
-                                            [--sweep] [--trace] [--proofs]
+                                            [--jit M] [--sweep] [--trace] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -94,6 +94,18 @@ shape and, with `--proofs`, per proof:
   torch.profiler and cProfile: its wall seconds, device busy ms, the host's
   share, the device ms of the kernels by name, the host ops' self CPU ms
   and the port's Python functions by cumulative seconds;
+- with `--jit M`, in place of the bucket shapes: the JAX package's jitted
+  scans, evaluations, Kate division and IPA rounds as the tree computes
+  them (kernels C-F, or rounds of kernel A before them) on Fp at 2^14 rows
+  from a numpy seed: prefix_product, exclusive_prefix_product from an
+  init, batch_invert, batch_eval_mont of M polynomials at four points,
+  device_powers, kate_division_mont, and an IPA round's emit and fold at
+  m = n: each call's median CUDA-event ms, whether it waits for the card
+  (a copy to or from the host under torch.cuda.set_sync_debug_mode), its
+  device ms (None where it waits: a CUDA graph cannot hold it), kernel A's
+  launches, the device kernels it launches (a torch.profiler count)
+  and the sha256 of its output's canonical values, which must be equal on
+  the parent and the change;
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -375,6 +387,70 @@ def host_functions(cprof, top: int = 20) -> list:
             for (fn, line, name), (cc, _nc, tt, ct, _callers) in stats.items()
             if "halo2_tpu_torch" in fn]
     return sorted(rows, key=lambda r: -r[2])[:top]
+
+
+def jit_section(dev, eval_m: int, log_n: int = 14) -> None:
+    """The scans, evaluations, powers, Kate division and IPA rounds of the
+    tree on Fp at 2^log_n (see the module's docstring); the modules are the
+    tree's own: kernels C-F where the tree has them, rounds of kernel A
+    before."""
+    from halo2_tpu_torch.fields import Fp
+    from halo2_tpu_torch.ops import field_ew, polyeval, scan
+    from halo2_tpu_torch.ops.field import FieldCtx, from_mont
+
+    try:
+        from halo2_tpu_torch.ops.ipa_round import round_emit, round_fold
+    except ImportError:  # before kernel F: the rounds in poly/ipa
+        from halo2_tpu_torch.poly.ipa import _round_emit as round_emit, _round_fold as round_fold
+    ctx, p, n = FieldCtx(Fp), Fp.MODULUS, 1 << log_n
+    rng = np.random.default_rng(20261024)
+
+    def rows(count):  # Montgomery values below 2p
+        limbs = rng.integers(0, 1 << 16, size=(count, 16), dtype=np.int64)
+        limbs[:, 15] %= (2 * p) >> 240
+        return torch.as_tensor(limbs.astype(np.int32), device=dev)
+
+    x, coeffs, pp, b, s = rows(n), rows(eval_m * n).reshape(eval_m, n, 16), rows(n), rows(n), rows(n)
+    z, rands, init = rows(1)[0], rows(2), rows(1)[0]
+    points = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
+    points = [points[i % 4] for i in range(eval_m)]
+    u, uinv = ctx.const(3, dev), ctx.const(pow(3, -1, p), dev)
+    calls = {
+        "prefix_product": lambda: scan.prefix_product(x, ctx),
+        "exclusive_prefix_product_init": lambda: scan.exclusive_prefix_product(x, ctx, init),
+        "batch_invert": lambda: scan.batch_invert(x, ctx),
+        "batch_eval_mont": lambda: polyeval.batch_eval_mont(Fp, coeffs, points),
+        "device_powers": lambda: polyeval.device_powers(x[5], n, ctx),
+        "kate_division_mont": lambda: polyeval.kate_division_mont(Fp, x, points[1]),
+        "round_emit": lambda: round_emit(pp, b, s, n, z, rands, ctx),
+        "round_fold": lambda: torch.stack(round_fold(pp, b, s, n, u, uinv, ctx)),
+    }
+    for name, fn in calls.items():
+        out = fn()
+        before = sum(field_ew.LAUNCHES.values())
+        fn()
+        a_launches = sum(field_ew.LAUNCHES.values()) - before
+        kernels = 0
+        for _ in range(3):  # a profiler session now and then misses kernels, never invents one
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = max(kernels, sum(1 for e in prof.events()
+                                       if e.device_type == torch.autograd.DeviceType.CUDA))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            syncs = False
+        except RuntimeError:  # a copy to or from the host that waits for the card
+            syncs = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dev_ms = None if syncs else device_ms(fn, 10)  # a CUDA graph cannot hold such a copy
+        canon = from_mont(out.reshape(-1, 16), ctx).cpu().numpy().tobytes()
+        emit({"jit": name, "n": n, "M": eval_m if name == "batch_eval_mont" else None,
+              "ms": time_ms(fn), "device_ms": dev_ms, "host_sync": syncs, "kernel_a_launches": a_launches,
+              "device_kernels": kernels, "canonical_sha256": hashlib.sha256(canon).hexdigest()})
 
 
 def fold_section(dev, sweep: bool = False, trace: bool = False) -> None:
@@ -674,6 +750,8 @@ def main(argv=None) -> int:
     ap.add_argument("--proofs", action="store_true")
     ap.add_argument("--fold", action="store_true")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--jit", type=int, default=0, metavar="M",
+                    help="kernels C-F (or their plain rounds), kernel D at M polynomials")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("msm_ab: CUDA is not available", file=sys.stderr)
@@ -706,6 +784,9 @@ def main(argv=None) -> int:
     )
     if ns.fold:
         fold_section(dev, ns.sweep, ns.trace)
+        bucket_shapes = ()
+    if ns.jit:
+        jit_section(dev, ns.jit)
         bucket_shapes = ()
     if ns.ntt:
         ntt_section(dev, np.random.default_rng(20261018), ns.sweep)
