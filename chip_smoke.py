@@ -9,13 +9,18 @@ scans, evaluations, Kate division and IPA rounds, as values mod p with
 every output in [0, 2p) on each of the four moduli, each call of a kernel
 under torch.cuda.set_sync_debug_mode("error"), so that a host sync inside
 raises: kernel C's prefix products, inclusive, exclusive and exclusive
-from an init, and batch inversion at 2^11, 2^14 + 3 and 2^17 rows with
-0 and p (inverted to 0), 1, p - 1 and 2p - 1 first; kernel D's batch
+from an init, and batch inversion at 2^11, 2^14 + 3 and 2^17 rows and at a
+tile's rows - 1, + 0 and + 1 and 33 tiles, with 0 and p (inverted to 0),
+1, p - 1 and 2p - 1 first, and after replays of a CUDA graph, and its
+inverse of a total (a binary GCD) against the host's pow on 256 values a
+modulus; kernel D's batch
 evaluation at M = 3 (a repeated point and the point 0) and at the largest
 evaluation stack of the k = 14 proof, and its powers of one point and of
 a batch of two; kernel E's Kate division at b = 0, 1, p - 1 and a random
-b; kernel F's emit and fold in every round of an opening over 2^14 lanes,
-m = 2^14 down to 2; each timed on Fp at 2^14 beside its bound, C-F each
+b at the sizes of kernel C, also after replays of a CUDA graph; kernel
+F's emit and fold in every round of an opening over 2^14 lanes,
+m = 2^14 down to 2; each timed on Fp at 2^14 beside its bound (C and E
+also at 2^17), C-F each
 launched on every proof path but F on the KZG one (phases scan,
 batch_eval, kate_div, ipa_round), and the launches of one proof on each
 path in phase launches_per_proof; kernel A, the
@@ -310,19 +315,21 @@ def timed(name, fn, log):
 KERNEL_SYMBOLS = {"cg_ntt_level": ("cg_level_kernel",), "msm_accum": ("accum_kernel(",),
                   "msm_fold": ("fold_kernel(",), "msm_lane_reduce": ("lane_reduce_kernel<",),
                   "field_ew": ("ew_kernel<",), "fold_program": ("fold_kernel<",),
-                  "scan": ("run_product_kernel<", "scan_carry_kernel<", "scan_apply_kernel<",
-                           "invert_carry_kernel<", "invert_apply_kernel<"),
+                  "scan": ("::scan_kernel<", "invert_prefix_kernel<", "invert_suffix_kernel<"),
                   "batch_eval": ("power_table_kernel<", "eval_kernel<", "eval_sum_kernel"),
-                  "kate_div": ("kate_run_kernel<", "kate_carry_kernel<", "kate_apply_kernel<"),
+                  "kate_div": ("kate_kernel<",),
                   "ipa_round": ("round_emit_kernel<", "round_tail_kernel<", "round_update_kernel<")}
 
 
 def traced_proof(prove, wrapped):
     """prove() once, each (module, name) of `wrapped` timed by CUDA events
     and every kernel on the card traced by torch.profiler: (its result,
-    {profiled_prove_s, device_events, device_busy_ms, kernels_event_ms,
-    kernels_traced_ms, kernels_traced_launches}); the last two give each
-    kernel of KERNEL_SYMBOLS its device time and its device kernels."""
+    {profiled_prove_s, device_events, device_memsets, device_busy_ms,
+    kernels_event_ms, kernels_traced_ms, kernels_traced_launches}); the last
+    two give each kernel of KERNEL_SYMBOLS its device time and its device
+    kernels. device_events counts every device operation, device_memsets
+    the memsets among them (kernels C and E zero their flags by one a call:
+    a device operation, not a kernel)."""
     event_log = []
     originals = {name: getattr(mod, name) for mod, name in wrapped}
     for mod, name in wrapped:
@@ -346,7 +353,9 @@ def traced_proof(prove, wrapped):
     traced_launches = {name: sum(1 for e in dev_events if any(sym in e.name for sym in syms))
                        for name, syms in KERNEL_SYMBOLS.items()}
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 if dev_events else None
-    return out, dict(profiled_prove_s=profiled_s, device_events=len(dev_events), device_busy_ms=busy_ms,
+    memsets = sum(1 for e in dev_events if "memset" in e.name.lower())
+    return out, dict(profiled_prove_s=profiled_s, device_events=len(dev_events), device_memsets=memsets,
+                     device_busy_ms=busy_ms,
                      kernels_event_ms=event_ms, kernels_traced_ms=traced_ms,
                      kernels_traced_launches=traced_launches)
 
@@ -380,12 +389,9 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """The card's time per call of fn(): `reps` calls captured in one CUDA
-    graph, its replay timed by CUDA events. Unlike an event pair around one
-    call it leaves out the host's launch time, which for a kernel of tens of
-    microseconds is most of the event time; what remains between the
-    kernels is the graph's launch gap of about a microsecond."""
+def captured(fn, reps: int):
+    """fn() once on a side stream, then `reps` calls of it captured in one
+    CUDA graph: (the graph, the captured calls' outputs)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -393,8 +399,30 @@ def device_ms(fn, reps: int = 10) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        outs = [fn() for _ in range(reps)]
+    return graph, outs
+
+
+def replayed(fn, reps: int = 3):
+    """The outputs of `reps` calls of fn captured in one CUDA graph, after
+    the graph's second replay (the outputs zeroed before it): what every
+    replay of a graph that holds the calls gives."""
+    graph, outs = captured(fn, reps)
+    graph.replay()
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return outs
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """The card's time per call of fn(): `reps` calls captured in one CUDA
+    graph, its replay timed by CUDA events. Unlike an event pair around one
+    call it leaves out the host's launch time, which for a kernel of tens of
+    microseconds is most of the event time; what remains between the
+    kernels is the graph's launch gap of about a microsecond."""
+    graph, _ = captured(fn, reps)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -762,33 +790,97 @@ def counts_kept(*modules):
             m.LAUNCHES.update(counts)
 
 
-def kernel_row(fn, plain, nbytes: int, products: int, p: int, shape: str, reps: int = 10):
+def kernel_row(fn, plain, nbytes: int, products: int, p: int, shape: str, reps: int = 10,
+               extra_s: float = 0.0):
     """ms and device ms of fn(), the plain version's ms, and the bound of
-    `nbytes` and `products` Montgomery products mod p."""
-    b_ms, b_by = bound(nbytes, products * product_s(p))
+    `nbytes` and `products` Montgomery products mod p (and `extra_s`
+    seconds more of the multiply pipe)."""
+    b_ms, b_by = bound(nbytes, products * product_s(p) + extra_s)
     dev_ms = device_ms(fn, reps)
     return dict(ms=time_ms(fn), device_ms=dev_ms, plain_ms=time_ms(plain, 2), bound_ms=b_ms,
                 bound_by=b_by, x_bound=dev_ms / b_ms, products=products, bytes=nbytes, shape=shape)
 
 
-def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed_n=1 << 14):
+# 32-bit multiplies (mul.wide, mad.lo, mad.hi) of one batch of the inverse
+# in csrc/scan.cu fe_inverse_gcd: update_fg's 4 products a limb over 9
+# limbs, update_de's 6, and the two products by p^-1 mod 2^30 (its divsteps
+# multiply nothing)
+INV_BATCH_MIX = (90, 2, 0)
+
+
+def inverse_s(p: int, batches: int) -> float:
+    """Seconds of the card's multiply pipe of kernel C's inverse of a total
+    that takes `batches` batches (scan.inverse_model), with its product by
+    R^3."""
+    wide, lo, hi = INV_BATCH_MIX
+    per_batch = wide / MUL_RATES["wide"] + lo / MUL_RATES["lo"] + hi / MUL_RATES["hi"]
+    return batches * per_batch + product_s(p)
+
+
+def replay_equal(fn, want, ctx) -> bool:
+    """Every output of `replayed(fn)` equals `want` as values, in [0, 2p)."""
+    return all(values_equal(out, want, ctx) for out in replayed(fn))
+
+
+def tile_sizes():
+    """A tile's rows - 1, + 0 and + 1, and more than 32 tiles (so that a
+    look-back reads more than one window)."""
+    from halo2_tpu_torch.ops.scan import TILE_ROWS
+
+    return (TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1, 33 * TILE_ROWS + 5)
+
+
+def inverse_path(dev, rng, count: int = 256):
+    """Kernel C's inverse against the host's pow on each modulus: `count`
+    values a modulus, scan.inverse_edges first, the rest uniform in [1, 2p)
+    (Montgomery limbs), each through a one-row batch_invert under no_sync;
+    the values' canonical inverses must equal pow(a, -1, p)."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import scan
+    from halo2_tpu_torch.ops.field import FieldCtx, ints_to_limbs, limbs_to_ints
+
+    checked = {}
+    for name in MODULI:
+        F = getattr(fields, name)
+        p, ctx = F.MODULUS, FieldCtx(F)
+        vals = [v for v in scan.inverse_edges(p) if v % p]
+        while len(vals) < count:
+            v = int.from_bytes(rng.bytes(40), "little") % (2 * p)
+            if v % p:
+                vals.append(v)
+        x = torch.as_tensor(ints_to_limbs(vals), device=dev)
+        with no_sync(dev):
+            got = torch.cat([scan.batch_invert(x[i:i + 1], ctx) for i in range(len(vals))])
+        r_inv = pow(1 << 256, -1, p)
+        want = [pow(v * r_inv % p, -1, p) for v in vals]
+        require(ctx.decode_ints(got) == want, f"kernel C's inverse on {name}: not pow(a, -1, p)")
+        require(max(limbs_to_ints(got)) < 2 * p, f"kernel C's inverse on {name}: an output not below 2p")
+        checked[name] = len(vals)
+    return checked
+
+
+def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17)):
     """Kernel C against its plain version, as values mod p with the output
     in [0, 2p): the inclusive and exclusive prefix products (the latter with
-    and without init) and batch_invert on each modulus at each of `sizes`,
-    the values 0, p (both zeros of batch_invert, which must come out as 0),
-    1, p - 1 and 2p - 1 in the first rows, each call of the kernel under
-    no_sync; then each timed on Fp at `timed_n` rows."""
+    and without init) and batch_invert on each modulus at each of `sizes`
+    and tile_sizes(), the values 0, p (both zeros of batch_invert, which
+    must come out as 0), 1, p - 1 and 2p - 1 in the first rows, each call of
+    the kernel under no_sync, at 2^14 + 3 and 33 tiles also after replays of
+    a CUDA graph; the inverse on 256 values a modulus (inverse_path); then
+    each timed on Fp at each of `timed`."""
     from halo2_tpu_torch import fields
     from halo2_tpu_torch.ops import field_ew, scan
     from halo2_tpu_torch.ops.field import FieldCtx
 
     rng = np.random.default_rng(seed)
-    checks = []
+    checks, replays = [], []
+    replay_sizes = ((1 << 14) + 3, 33 * scan.TILE_ROWS + 5)
     with counts_kept(scan, field_ew):
+        inverses = inverse_path(dev, rng)
         for name in MODULI:
             F = getattr(fields, name)
             p, ctx = F.MODULUS, FieldCtx(F)
-            for n in sizes:
+            for n in (*sizes, *tile_sizes()):
                 x = lazy_rows(rng, p, n, [0, p, 1, p - 1, 2 * p - 1]).to(dev)
                 init = lazy_rows(rng, p, 1).to(dev)[0]
                 cases = {
@@ -801,30 +893,44 @@ def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed_n=1
                 for case, (kern, plain, extra) in cases.items():
                     with no_sync(dev):
                         got = kern(x, ctx, *extra)
-                    require(values_equal(got, plain(x, ctx, *extra), ctx),
-                            f"scan {case} {name} n={n}: kernel != plain")
+                    want = plain(x, ctx, *extra)
+                    require(values_equal(got, want, ctx), f"scan {case} {name} n={n}: kernel != plain")
                     checks.append(f"{name}:{n}:{case}")
                     if case == "batch_invert":
                         require(not bool(got[:2].any()), f"scan batch_invert {name}: 0 and p not inverted to 0")
-        ctx = FieldCtx(fields.Fp)
-        x = lazy_rows(rng, fields.Fp.MODULUS, timed_n).to(dev)
-        init = x[7]
-        n, p = timed_n, fields.Fp.MODULUS
-        shape = f"n=2^{n.bit_length() - 1} (Fp)"
-        timing = {
-            "prefix_product": kernel_row(lambda: scan.prefix_product(x, ctx),
-                                         lambda: scan.prefix_product_plain(x, ctx), 128 * n, n - 1, p, shape),
-            "exclusive_init": kernel_row(lambda: scan.exclusive_prefix_product(x, ctx, init),
-                                         lambda: scan.exclusive_prefix_product_plain(x, ctx, init),
-                                         128 * n + 64, n, p, shape),
-            # Montgomery's trick: 3 (n - 1) products, and the ladder's 254
-            # squarings and 127 products in series (p - 2 has 128 set bits on Fp)
-            "batch_invert": kernel_row(lambda: scan.batch_invert(x, ctx),
-                                       lambda: scan.batch_invert_plain(x, ctx), 128 * n,
-                                       3 * (n - 1) + 254 + bin(p - 2).count("1") - 1, p, shape),
-        }
-    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), exact_values=True,
-                no_sync=True, timing=timing)
+                    if n in replay_sizes:
+                        require(replay_equal(lambda: kern(x, ctx, *extra), want, ctx),
+                                f"scan {case} {name} n={n}: a CUDA graph's replay != plain")
+                        replays.append(f"{name}:{n}:{case}")
+        ctx, p = FieldCtx(fields.Fp), fields.Fp.MODULUS
+        timing = {}
+        for n in timed:
+            x = lazy_rows(rng, p, n).to(dev)
+            init = x[7]
+            shape = f"n=2^{n.bit_length() - 1} (Fp)"
+            suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
+            # the total's inverse takes as many batches as its value needs
+            total = 1
+            for v in ctx.decode_ints(x):
+                total = total * v % p if v else total
+            batches = scan.inverse_model(total * ctx.r_int % p, p)[1]
+            timing.update({
+                f"prefix_product{suffix}": kernel_row(lambda: scan.prefix_product(x, ctx),
+                                                      lambda: scan.prefix_product_plain(x, ctx), 128 * n, n - 1,
+                                                      p, shape),
+                f"exclusive_init{suffix}": kernel_row(lambda: scan.exclusive_prefix_product(x, ctx, init),
+                                                      lambda: scan.exclusive_prefix_product_plain(x, ctx, init),
+                                                      128 * n + 64, n, p, shape),
+                # Montgomery's trick: 3 (n - 1) products, and the inverse's
+                # batches (INV_BATCH_MIX each) and its product by R^3
+                f"batch_invert{suffix}": kernel_row(lambda: scan.batch_invert(x, ctx),
+                                                    lambda: scan.batch_invert_plain(x, ctx), 128 * n,
+                                                    3 * (n - 1), p, shape + f", inverse {batches} batches",
+                                                    extra_s=inverse_s(p, batches)),
+            })
+    return dict(checks=len(checks), replays=len(replays), inverse_values=inverses,
+                sizes=[*sizes, *tile_sizes()], moduli=list(MODULI), exact_values=True, no_sync=True,
+                timing=timing)
 
 
 def batch_eval_path(dev, seed: int, eval_m: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17),
@@ -886,39 +992,50 @@ def batch_eval_path(dev, seed: int, eval_m: int, sizes=(1 << 11, (1 << 14) + 3, 
                 no_sync=True, timing=timing)
 
 
-def kate_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed_n=1 << 14):
+def kate_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17)):
     """Kernel E against its plain version, as values mod p with outputs in
-    [0, 2p) and the top coefficient 0, on each modulus at each of `sizes`,
-    coefficients below 2p with 0, p, p - 1 and 2p - 1 first, at b = 0, 1,
-    p - 1 and a random b, each call of the kernel under no_sync; then timed
-    on Fp at `timed_n` rows."""
+    [0, 2p) and the top coefficient 0, on each modulus at each of `sizes`
+    and tile_sizes(), coefficients below 2p with 0, p, p - 1 and 2p - 1
+    first, at b = 0, 1, p - 1 and a random b, each call of the kernel under
+    no_sync, at 2^14 + 3 and 33 tiles also after replays of a CUDA graph;
+    then timed on Fp at each of `timed`."""
     from halo2_tpu_torch import fields
     from halo2_tpu_torch.ops import field_ew, polyeval
+    from halo2_tpu_torch.ops.scan import TILE_ROWS
+
     from halo2_tpu_torch.ops.field import FieldCtx
 
     rng = np.random.default_rng(seed)
-    checks = []
+    checks, replays = [], []
+    replay_sizes = ((1 << 14) + 3, 33 * TILE_ROWS + 5)
     with counts_kept(polyeval, field_ew):
         for name in MODULI:
             F = getattr(fields, name)
             p, ctx = F.MODULUS, FieldCtx(F)
-            for n in sizes:
+            for n in (*sizes, *tile_sizes()):
                 a = lazy_rows(rng, p, n, [0, p, p - 1, 2 * p - 1]).to(dev)
                 for b in (0, 1, p - 1, int(rng.integers(2, 1 << 62))):
                     with no_sync(dev):
                         got = polyeval.kate_division_mont(F, a, b)
-                    require(values_equal(got, polyeval.kate_division_mont_plain(F, a, b), ctx),
-                            f"kate_division_mont {name} n={n} b={b}: kernel != plain")
+                    want = polyeval.kate_division_mont_plain(F, a, b)
+                    require(values_equal(got, want, ctx), f"kate_division_mont {name} n={n} b={b}: kernel != plain")
                     require(not bool(got[-1].any()), f"kate_division_mont {name}: the top coefficient is not 0")
                     checks.append(f"{name}:{n}:kate:{b}")
-        F, n = fields.Fp, timed_n
+                    if n in replay_sizes and b > 1:
+                        require(replay_equal(lambda: polyeval.kate_division_mont(F, a, b), want, ctx),
+                                f"kate_division_mont {name} n={n} b={b}: a CUDA graph's replay != plain")
+                        replays.append(f"{name}:{n}:kate:{b}")
+        F = fields.Fp
         p, ctx = F.MODULUS, FieldCtx(F)
-        a, b = lazy_rows(rng, p, n).to(dev), int(rng.integers(2, 1 << 62))
-        timing = {"kate_div": kernel_row(lambda: polyeval.kate_division_mont(F, a, b),
-                                         lambda: polyeval.kate_division_mont_plain(F, a, b), 128 * n, n - 1, p,
-                                         f"n=2^{n.bit_length() - 1} (Fp)")}
-    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), exact_values=True, no_sync=True,
-                timing=timing)
+        timing = {}
+        for n in timed:
+            a, b = lazy_rows(rng, p, n).to(dev), int(rng.integers(2, 1 << 62))
+            suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
+            timing[f"kate_div{suffix}"] = kernel_row(lambda: polyeval.kate_division_mont(F, a, b),
+                                                     lambda: polyeval.kate_division_mont_plain(F, a, b), 128 * n,
+                                                     n - 1, p, f"n=2^{n.bit_length() - 1} (Fp)")
+    return dict(checks=len(checks), replays=len(replays), sizes=[*sizes, *tile_sizes()], moduli=list(MODULI),
+                exact_values=True, no_sync=True, timing=timing)
 
 
 def ipa_round_path(dev, seed: int, log_n: int = 14):
@@ -1829,11 +1946,11 @@ def main() -> int:
             f"kernels C-F: a kernel spills or has a stack frame: {ptxas_jit}")
     for name, source, replaces, row, more in (
             ("scan", "scan.cu", "halo2_tpu/ops/scan.py:27", scan_res["timing"]["prefix_product"],
-             {"exclusive_init": scan_res["timing"]["exclusive_init"],
-              "batch_invert": scan_res["timing"]["batch_invert"]}),
+             {key: row for key, row in scan_res["timing"].items() if key != "prefix_product"}),
             ("batch_eval", "polyeval.cu", "halo2_tpu/ops/polyeval.py:71", eval_res["timing"]["batch_eval"],
              {"powers": eval_res["timing"]["powers"]}),
-            ("kate_div", "polyeval.cu", "halo2_tpu/ops/polyeval.py:137", kate_res["timing"]["kate_div"], {}),
+            ("kate_div", "polyeval.cu", "halo2_tpu/ops/polyeval.py:137", kate_res["timing"]["kate_div"],
+             {key: row for key, row in kate_res["timing"].items() if key != "kate_div"}),
             ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["emit"],
              {"fold": ipa_res["timing"]["fold"]})):
         errs[name] = 0  # values mod p equal the plain version's
@@ -2524,7 +2641,8 @@ def main() -> int:
           "paths": {path: {name: counts[name] for name in (*field_ew.OPS, "field_ew", *ew_kernels[1:],
                                                            *jit_kernels)}
                     for path, counts in proof_launches.items()},
-          "traced_k14": {"device_events": traced14["device_events"], "device_busy_ms": traced14["device_busy_ms"],
+          "traced_k14": {"device_events": traced14["device_events"], "device_memsets": traced14["device_memsets"],
+                         "device_busy_ms": traced14["device_busy_ms"],
                          "kernels_traced_launches": traced14["kernels_traced_launches"],
                          "kernels_traced_ms": traced14["kernels_traced_ms"]}})
     kernels = []

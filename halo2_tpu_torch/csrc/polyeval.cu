@@ -21,14 +21,13 @@
 // Kernel E replaces the JAX package's Kate division
 // (halo2_tpu/ops/polyeval.py:137-156 _kate_kernel, a reverse associative
 // scan of the affine maps v -> b v + a_i): q_i = s_{i+1} with the suffix
-// recurrence s_i = a_i + b s_{i+1}, s_n = 0, and q_{n-1} = 0. A
-// reduce-then-scan over runs of kRunRows rows (csrc/scan.cuh):
-// - kate_run_kernel: each run's suffix Horner sum h_t from zero;
-// - kate_carry_kernel: one block scans the maps v -> b^kRunRows v + h_t in
-//   reverse (later runs first) into each run's carry in, s at the row after
-//   the run;
-// - kate_apply_kernel: each run's Horner steps again from its carry in,
-//   writing q.
+// recurrence s_i = a_i + b s_{i+1}, s_n = 0, and q_{n-1} = 0. It is one
+// launch of the single-pass look-back scan of csrc/scan.cuh
+// (kate_kernel), from the last row back, over the maps v -> b v + a_i:
+// the maps of L rows compose to v -> b^L v + c, and the scan keeps c
+// alone, each combine one product by a power of b from a table that the
+// launch takes by value (KateOp); descriptor 0 is the identity (s_n = 0),
+// and q_i is the c of the composition of the maps after row i.
 //
 // Products fe_mul_cc<kPasta> and sums fe_add_cc (kernel A's forms), so the
 // outputs lie in [0, 2p) and equal the plain versions (ops/polyeval.py,
@@ -38,13 +37,16 @@
 // What bounds them on an H100: kernel D's M n products (17 ps each in the
 // Pasta form) against 64 M n bytes of coefficients (19 ps a row at
 // 3.35 TB/s): bytes, barely, and at the paths' shapes (n = 2^11 .. 2^17)
-// a few microseconds of either. Kernel E's n products and 128 bytes a row
-// are under a microsecond at n = 2^14. Both are bound by the latency of
-// their chains of products in practice: a thread's run of kRunRows steps
-// and the start power of eval_kernel (one product a set bit of r0), the
-// carry scan's 2 log2(kCarryThreads) combines. The design keeps the runs short and
-// needs no round trip to the host.
+// a few microseconds of either. Kernel E's products (about 3 a row here)
+// and 128 bytes a row are about a microsecond at n = 2^14. Both are bound
+// by the latency of their chains of products in practice: kernel D's run
+// of kRunRows steps and the start power of eval_kernel (one product a set
+// bit of r0); kernel E's run of kScanRows combines, the block scan's
+// levels, the look-back's (5 a window of 32 tiles, and a level a doubling
+// of the windows of a round) and one more, each a product and a sum.
+// Neither needs a round trip to the host.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
@@ -123,82 +125,76 @@ __global__ void eval_sum_kernel(EvalArgs g, FieldConsts k) {
   if (threadIdx.x == 0) row_store(g.out, m, acc);
 }
 
+// b's powers that kernel E's scan multiplies by (scan.cuh's operator hooks)
+struct KateTable {
+  Fe pow2[kPow2];          // b^(2^e)
+  Fe lane[32];             // b^(kScanRows l)
+  Fe warp[kScanWarps];     // b^(32 kScanRows w)
+  Fe row[kScanRows + 1];   // b^j
+};
+
+// Kate division's maps v -> b v + a_i: the maps of L rows compose to
+// v -> b^L v + c, kept as c, and combine(earlier, later, b^(later's rows))
+// is b^L c_earlier + c_later
+template <bool kPasta>
+struct KateOp {
+  struct S {
+    static constexpr int kWords = 8;
+    Fe c;
+  };
+  using Pw = Fe;
+  FieldConsts k;
+  const KateTable& t;
+  __device__ S identity() const { return S{fe_zero()}; }
+  __device__ S combine(const S& x, const S& y, const Pw& pw) const {
+    return S{fe_add_cc(fe_mul_cc<kPasta>(pw, x.c, k), y.c, k)};
+  }
+  __device__ Pw pow2(int e) const { return t.pow2[e]; }
+  __device__ Pw lane_pow(int l) const { return t.lane[l]; }
+  __device__ Pw warp_pow(int w) const { return t.warp[w]; }
+  __device__ Pw row_pow(int j) const { return t.row[j]; }
+  __device__ Pw pw_mul(const Pw& a, const Pw& b) const { return fe_mul_cc<kPasta>(a, b, k); }
+};
+
 struct KateArgs {
   const int32_t* a;  // (n, 16) coefficients
   int32_t* q;        // (n, 16) quotient
-  int32_t* tot;      // (T, 16) run sums
-  int32_t* carry;    // (T, 16) carries in
+  Lookback lb;
   long long n;
-  long long runs;
-  Fe b;              // b in Montgomery form
-  Fe bR;             // b^kRunRows
+  long long tiles;   // T = ceil(n / kTileRows)
+  KateTable table;
+};
+
+// a row's map (b, a_r), as c = a_r; the output q_r is the c of the maps
+// after row r applied to 0
+template <bool kPasta>
+struct KateRows {
+  using S = typename KateOp<kPasta>::S;
+  const int32_t* a;
+  int32_t* q;
+  __device__ S element(int, long long r) const { return S{row_load(a, r)}; }
+  __device__ S prepare(int, const S& x) const { return x; }
+  __device__ void emit(int, long long r, const S& s) const { row_store(q, r, s.c); }
 };
 
 template <bool kPasta>
-__global__ void __launch_bounds__(kRunThreads) kate_run_kernel(KateArgs g, FieldConsts k) {
-  const long long t = (long long)blockIdx.x * kRunThreads + threadIdx.x;
-  if (t >= g.runs) return;
-  const long long r0 = t * kRunRows;
-  Fe s = fe_zero();
-  bool any = false;
-#pragma unroll
-  for (int j = kRunRows - 1; j >= 0; --j) {
-    if (r0 + j < g.n) {
-      const Fe a = row_load(g.a, r0 + j);
-      s = any ? fe_add_cc(a, fe_mul_cc<kPasta>(g.b, s, k), k) : a;
-      any = true;
-    }
+__global__ void __launch_bounds__(kScanThreads) kate_kernel(const __grid_constant__ KateArgs g, FieldConsts k) {
+  const KateOp<kPasta> op{k, g.table};
+  const long long d = draw_ticket(g.lb);
+  if (d == 0) {
+    if (threadIdx.x == 0) publish(g.lb, 0, kPrefix, op.identity());
+    return;
   }
-  row_store(g.tot, t, s);
-}
-
-// one block: each run's carry in, the composition of the later runs' maps
-// v -> b^kRunRows v + h at 0
-template <bool kPasta>
-__global__ void __launch_bounds__(kCarryThreads) kate_carry_kernel(KateArgs g, FieldConsts k) {
-  using Op = AffineOp<kPasta>;
-  using S = typename Op::S;
-  __shared__ S sh[32];
-  const Op op{k};
-  const long long chunk = (g.runs + kCarryThreads - 1) / kCarryThreads;
-  const long long c0 = threadIdx.x * chunk, c1 = min(c0 + chunk, g.runs);
-  S agg = op.identity();
-  for (long long t = c1 - 1; t >= c0; --t) {
-    const S e{g.bR, row_load(g.tot, t)};
-    agg = t == c1 - 1 ? e : op.combine(agg, e);
-  }
-  S total;  // unused: every run needs only the runs after it
-  S carry = block_exclusive_scan<true>(agg, op, sh, total);
-  for (long long t = c1 - 1; t >= c0; --t) {
-    row_store(g.carry, t, carry.c);
-    carry = op.combine(carry, S{g.bR, row_load(g.tot, t)});
-  }
-}
-
-template <bool kPasta>
-__global__ void __launch_bounds__(kRunThreads) kate_apply_kernel(KateArgs g, FieldConsts k) {
-  const long long t = (long long)blockIdx.x * kRunThreads + threadIdx.x;
-  if (t >= g.runs) return;
-  const long long r0 = t * kRunRows;
-  Fe s = row_load(g.carry, t);  // s at the row after the run
-#pragma unroll
-  for (int j = kRunRows - 1; j >= 0; --j) {
-    if (r0 + j < g.n) {  // rows past n: s stays 0 (the last run's carry)
-      row_store(g.q, r0 + j, s);
-      if (j > 0) s = fe_add_cc(row_load(g.a, r0 + j), fe_mul_cc<kPasta>(g.b, s, k), k);
-    }
-  }
-}
-
-Fe words(const uint32_t* w) {
-  Fe r;
-  for (int i = 0; i < 8; ++i) r.v[i] = w[i];
-  return r;
+  KateRows<kPasta> rows{g.a, g.q};
+  scan_tile<true, true>(op, rows, g.lb, d, g.n, g.tiles);
 }
 
 }  // namespace
 
 extern "C" int polyeval_run_rows() { return kRunRows; }
+extern "C" int polyeval_tile_rows() { return kTileRows; }
+// Fe entries of kernel E's table of b's powers.
+extern "C" int kate_table_entries() { return (int)(sizeof(KateTable) / sizeof(Fe)); }
 
 // Q points' tables x^(2^j), j < L, from x (Q, 16).
 extern "C" int power_table(const int32_t* x, int32_t* xtab, int Q, int L, const FieldConsts* consts,
@@ -232,25 +228,26 @@ extern "C" int batch_eval(int powers, const int32_t* coeffs, const int32_t* xtab
   return (int)cudaGetLastError();
 }
 
-// q (n, 16) = (a(X) - a(b)) / (X - b); b and bR = b^kRunRows as 8 words,
-// Montgomery form; tot and carry (ceil(n / kRunRows), 16) scratch.
-extern "C" int kate_div(const int32_t* a, int32_t* q, int32_t* tot, int32_t* carry, long long n,
-                        const uint32_t* b, const uint32_t* bR, const FieldConsts* consts, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  KateArgs g{a, q, tot, carry, n, (n + kRunRows - 1) / kRunRows, words(b), words(bR)};
-  const long long blocks = (g.runs + kRunThreads - 1) / kRunThreads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const FieldConsts& k = *consts;
+// q (n, 16) = (a(X) - a(b)) / (X - b); table: kate_table_entries() times
+// 8 words, b's powers in Montgomery form (ops/polyeval.py kate_words);
+// scratch: the words of one scan (ops/scan.py scratch_words), 16-byte
+// aligned; its flags are zeroed here, on the
+// stream, before the launch (a memset, not a kernel).
+extern "C" int kate_div(const int32_t* a, int32_t* q, int32_t* scratch, long long scratch_words, long long n,
+                        const uint32_t* table, const FieldConsts* consts, void* stream) {
+  const long long tiles = scan_tiles(n);
+  if (n <= 0 || tiles + 1 > 0x7FFFFFFFLL || scratch_words < lookback_words(tiles))
+    return (int)cudaErrorInvalidValue;
+  KateArgs g{a, q, lookback_at(scratch, tiles), n, tiles, {}};
+  memcpy(&g.table, table, sizeof(KateTable));
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = (unsigned)blocks;
-  if (pasta_form(k)) {
-    kate_run_kernel<true><<<nb, kRunThreads, 0, s>>>(g, k);
-    kate_carry_kernel<true><<<1, kCarryThreads, 0, s>>>(g, k);
-    kate_apply_kernel<true><<<nb, kRunThreads, 0, s>>>(g, k);
-  } else {
-    kate_run_kernel<false><<<nb, kRunThreads, 0, s>>>(g, k);
-    kate_carry_kernel<false><<<1, kCarryThreads, 0, s>>>(g, k);
-    kate_apply_kernel<false><<<nb, kRunThreads, 0, s>>>(g, k);
-  }
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, 4 * lookback_flag_words(tiles), s);
+  if (err != cudaSuccess) return (int)err;
+  const FieldConsts& k = *consts;
+  const unsigned blocks = (unsigned)(tiles + 1);
+  if (pasta_form(k))
+    kate_kernel<true><<<blocks, kScanThreads, 0, s>>>(g, k);
+  else
+    kate_kernel<false><<<blocks, kScanThreads, 0, s>>>(g, k);
   return (int)cudaGetLastError();
 }

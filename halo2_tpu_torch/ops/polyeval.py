@@ -14,9 +14,10 @@ tensor, and raise for any other device; none reads anything back to the
 host on the card. Kernel D gives each thread a run of RUN_ROWS rows from
 x^r0 (a product of entries of the point's table x^(2^j)) and sums c_i x^i
 in the block, a second launch the blocks; in its powers mode it writes
-x^i. Kernel E is a reduce-then-scan of the suffix recurrence
-s_i = a_i + b s_{i+1}. Their outputs lie in [0, 2p) and equal the plain
-versions' as values mod p.
+x^i. Kernel E is one launch of kernel C's single-pass look-back scan
+(`csrc/scan.cuh`), from the last row back, over the affine maps
+v -> b v + a_i of the suffix recurrence s_i = a_i + b s_{i+1}. Their
+outputs lie in [0, 2p) and equal the plain versions' as values mod p.
 
 The plain versions are the JAX package's algorithms in torch: a
 log-doubling power ladder and a log-depth modular tree sum; for Kate
@@ -36,19 +37,21 @@ import torch
 from ..fields import FieldElement
 from . import _build
 from .field import NLIMBS, FieldCtx, add_mod, ints_to_limbs, mont_mul
-from .scan import RUN_ROWS
+from . import scan as scan_ops
 
+RUN_ROWS = 8  # csrc/scan.cuh kRunRows: rows a thread of kernel D's evaluation
 EVAL_THREADS = 128  # csrc/polyeval.cu kEvalThreads
 LAUNCHES = {"batch_eval": 0, "kate_div": 0}  # kernels D and E: their device kernels
 
 _P = ctypes.c_void_p
-_W8 = ctypes.c_uint32 * 8
 _SIG = {
     "power_table": (_P, _P, ctypes.c_int, ctypes.c_int, _P, _P),
     "batch_eval": (ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, _P, _P),
-    "kate_div": (_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P),
+    "kate_div": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P),
     "polyeval_run_rows": (),
+    "polyeval_tile_rows": (),
+    "kate_table_entries": (),
 }
 
 
@@ -57,6 +60,12 @@ def _lib():
     if lib.polyeval_run_rows() != RUN_ROWS:
         raise RuntimeError(f"polyeval: the library runs {lib.polyeval_run_rows()} rows a thread, "
                            f"not {RUN_ROWS}")
+    if lib.polyeval_tile_rows() != scan_ops.TILE_ROWS:
+        raise RuntimeError(f"polyeval: the library's tiles hold {lib.polyeval_tile_rows()} rows, "
+                           f"not {scan_ops.TILE_ROWS}")
+    if lib.kate_table_entries() != len(kate_powers(1, 3)):
+        raise RuntimeError(f"polyeval: the library's Kate table holds {lib.kate_table_entries()} entries, "
+                           f"not {len(kate_powers(1, 3))}")
     return lib
 
 
@@ -220,19 +229,40 @@ def horner_fold_mont(field: Type[FieldElement], stack: torch.Tensor, x: int) -> 
     return acc
 
 
+def kate_powers(b: int, p: int) -> List[int]:
+    """The powers of b that kernel E multiplies by, as csrc/polyeval.cu's
+    KateTable holds them: b^(2^e) for e up to a look-back round's rows
+    (log2 of TILE_ROWS, 32 tiles a window, a window a warp), b^(R l) for the
+    32 lanes l and b^(32 R w) for the warps w of a tile (R rows a thread),
+    and b^j for j = 0 .. R; by products, not exponentiations, since a call
+    builds them on the host."""
+    rows, warps = scan_ops.SCAN_ROWS, scan_ops.SCAN_THREADS // 32
+    pow2 = [b % p]
+    for _ in range((scan_ops.TILE_ROWS * 32 * warps).bit_length() - 1):
+        pow2.append(pow2[-1] * pow2[-1] % p)
+    row = [1]
+    for _ in range(rows):
+        row.append(row[-1] * b % p)
+    lane = [1]
+    for _ in range(31):
+        lane.append(lane[-1] * row[rows] % p)
+    warp, step = [1], lane[31] * row[rows] % p
+    for _ in range(warps - 1):
+        warp.append(warp[-1] * step % p)
+    return pow2 + lane + warp + row
+
+
 def kate_words(ctx: FieldCtx, b: int):
-    """b and b^RUN_ROWS in Montgomery form, as the 8 words kernel E takes
+    """kate_powers of b in Montgomery form, 8 words each, as kernel E takes
     them by value."""
     p, r = ctx.p_int, ctx.r_int
-
-    def words(v: int):
-        return _W8(*[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
-
-    return words(b % p * r % p), words(pow(b, RUN_ROWS, p) * r % p)
+    vals = kate_powers(b % p, p)
+    raw = b"".join((v * r % p).to_bytes(32, "little") for v in vals)
+    return (ctypes.c_uint32 * (8 * len(vals))).from_buffer_copy(raw)
 
 
 def kate_launch(coeffs: torch.Tensor, b: int, ctx: FieldCtx) -> torch.Tensor:
-    """Kernel E on a CUDA tensor (n, 16): three device kernels."""
+    """Kernel E on a CUDA tensor (n, 16): one device kernel."""
     if coeffs.dim() != 2 or coeffs.shape[1] != NLIMBS:
         raise ValueError(f"kate_division_mont: expected (n, 16) limbs, got {tuple(coeffs.shape)}")
     a = coeffs.to(torch.int32).contiguous()
@@ -241,13 +271,12 @@ def kate_launch(coeffs: torch.Tensor, b: int, ctx: FieldCtx) -> torch.Tensor:
     if n == 0:
         return q
     _build.check_tensor(a, (n, NLIMBS), "coeffs", a.device, align=16)
-    runs = -(-n // RUN_ROWS)
-    scratch = torch.empty((2, runs, NLIMBS), dtype=torch.int32, device=a.device)
-    bw, brw = kate_words(ctx, b)
-    err = _lib().kate_div(a.data_ptr(), q.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), n,
-                          bw, brw, ctypes.byref(_build.field_consts(ctx.p_int)), _stream(a))
+    words = scan_ops.scratch_words(n)
+    scratch = torch.empty(words, dtype=torch.int32, device=a.device)
+    err = _lib().kate_div(a.data_ptr(), q.data_ptr(), scratch.data_ptr(), words, n, kate_words(ctx, b),
+                          ctypes.byref(_build.field_consts(ctx.p_int)), _stream(a))
     _build.check(err, "kate_div")
-    LAUNCHES["kate_div"] += 3
+    LAUNCHES["kate_div"] += 1
     return q
 
 

@@ -105,7 +105,14 @@ shape and, with `--proofs`, per proof:
   device ms (None where it waits: a CUDA graph cannot hold it), kernel A's
   launches, the device kernels it launches (a torch.profiler count)
   and the sha256 of its output's canonical values, which must be equal on
-  the parent and the change;
+  the parent and the change; the scans and Kate division also at 2^17 rows
+  (names ending in "_2^17"), the prefix product and batch inversion of one
+  row (a launch's fixed cost, and the inverse of the total; "_n1"); with `--sweep` (trees whose scans take
+  SCAN_ROWS / SCAN_THREADS), csrc/scan.cu and csrc/polyeval.cu built again
+  at each (rows a thread, threads a tile) of SCAN_SWEEP, and for each the
+  device ms of those calls at 2^14 and 2^17, whether each output's
+  canonical sha256 equals the default build's, and the kernels' registers
+  and spills;
 - BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
   the sha256 of the proof, prove seconds, and kernels 2-7's launches and
   CUDA-event milliseconds in the proof.
@@ -150,6 +157,9 @@ NTT_LOG_F_SWEEP = (6, 7, 8, 9)
 # kernel B's bundle widths (each a build of csrc/fold.cu with FOLD_WIDTH)
 # and the scheduler's lookahead windows
 FOLD_WIDTH_SWEEP = (2, 4, 8)
+# (rows a thread, threads a tile) of kernels C and E's one-pass scans, each a
+# build of csrc/scan.cu and csrc/polyeval.cu; the default is (2, 128)
+SCAN_SWEEP = ((1, 256), (1, 512), (2, 128), (2, 256), (4, 128), (4, 256))
 FOLD_WINDOW_SWEEP = (32, 64, 128)
 # (kernel 9's, kernel 10's) (threads a block, min blocks an SM of
 # __launch_bounds__), one build of csrc/tile_bench.cu each; the default
@@ -389,11 +399,11 @@ def host_functions(cprof, top: int = 20) -> list:
     return sorted(rows, key=lambda r: -r[2])[:top]
 
 
-def jit_section(dev, eval_m: int, log_n: int = 14) -> None:
+def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
     """The scans, evaluations, powers, Kate division and IPA rounds of the
-    tree on Fp at 2^log_n (see the module's docstring); the modules are the
-    tree's own: kernels C-F where the tree has them, rounds of kernel A
-    before."""
+    tree on Fp at 2^log_n, the scans and Kate division also at 2^17 (see the
+    module's docstring); the modules are the tree's own: kernels C-F where
+    the tree has them, rounds of kernel A before."""
     from halo2_tpu_torch.fields import Fp
     from halo2_tpu_torch.ops import field_ew, polyeval, scan
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont
@@ -415,6 +425,7 @@ def jit_section(dev, eval_m: int, log_n: int = 14) -> None:
     points = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
     points = [points[i % 4] for i in range(eval_m)]
     u, uinv = ctx.const(3, dev), ctx.const(pow(3, -1, p), dev)
+    x17 = rows(1 << 17)
     calls = {
         "prefix_product": lambda: scan.prefix_product(x, ctx),
         "exclusive_prefix_product_init": lambda: scan.exclusive_prefix_product(x, ctx, init),
@@ -424,7 +435,19 @@ def jit_section(dev, eval_m: int, log_n: int = 14) -> None:
         "kate_division_mont": lambda: polyeval.kate_division_mont(Fp, x, points[1]),
         "round_emit": lambda: round_emit(pp, b, s, n, z, rands, ctx),
         "round_fold": lambda: torch.stack(round_fold(pp, b, s, n, u, uinv, ctx)),
+        "prefix_product_2^17": lambda: scan.prefix_product(x17, ctx),
+        "exclusive_prefix_product_init_2^17": lambda: scan.exclusive_prefix_product(x17, ctx, init),
+        "batch_invert_2^17": lambda: scan.batch_invert(x17, ctx),
+        "kate_division_mont_2^17": lambda: polyeval.kate_division_mont(Fp, x17, points[1]),
+        # one row: a launch's fixed cost, and batch inversion's inverse of its total
+        "prefix_product_n1": lambda: scan.prefix_product(x[:1], ctx),
+        "batch_invert_n1": lambda: scan.batch_invert(x[:1], ctx),
     }
+
+    def canonical_sha256(out):
+        return hashlib.sha256(from_mont(out.reshape(-1, 16), ctx).cpu().numpy().tobytes()).hexdigest()
+
+    hashes = {}
     for name, fn in calls.items():
         out = fn()
         before = sum(field_ew.LAUNCHES.values())
@@ -447,10 +470,35 @@ def jit_section(dev, eval_m: int, log_n: int = 14) -> None:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         dev_ms = None if syncs else device_ms(fn, 10)  # a CUDA graph cannot hold such a copy
-        canon = from_mont(out.reshape(-1, 16), ctx).cpu().numpy().tobytes()
-        emit({"jit": name, "n": n, "M": eval_m if name == "batch_eval_mont" else None,
+        hashes[name] = canonical_sha256(out)
+        emit({"jit": name, "n": x17.shape[0] if name.endswith("_2^17") else 1 if name.endswith("_n1") else n,
+              "M": eval_m if name == "batch_eval_mont" else None,
               "ms": time_ms(fn), "device_ms": dev_ms, "host_sync": syncs, "kernel_a_launches": a_launches,
-              "device_kernels": kernels, "canonical_sha256": hashlib.sha256(canon).hexdigest()})
+              "device_kernels": kernels, "canonical_sha256": hashes[name]})
+    if not sweep or not hasattr(scan, "SCAN_THREADS"):
+        return
+    from halo2_tpu_torch.ops import _build
+
+    swept = [name for name in calls if name.startswith(("prefix", "exclusive", "batch_invert", "kate"))]
+    defaults = {name: _build.load(name, sig) for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG))}
+    geometry = (scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS)
+    variants = [(f"SCAN_ROWS={r}", f"SCAN_THREADS={t}") for r, t in SCAN_SWEEP]
+    emit({"sweep": "scan_build", "seconds": _build.build_all(["scan", "polyeval"], variants)})
+    try:
+        for (r, t), defs in zip(SCAN_SWEEP, variants):
+            # the wrappers launch the variant's kernels over tiles of r t rows
+            scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = r, t, r * t
+            for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG)):
+                _build._libs[(name, ())] = _build.load(name, sig, defs)
+            usage = {**_build.ptxas_usage("scan", defs), **_build.ptxas_usage("polyeval", defs)}
+            emit({"sweep": "scan_geometry", "rows": r, "threads": t,
+                  "device_ms": {name: device_ms(calls[name], 10) for name in swept},
+                  "same_canonical": all(canonical_sha256(calls[name]()) == hashes[name] for name in swept),
+                  "ptxas": {k: v for k, v in usage.items() if k.startswith(("scan", "invert", "kate"))}})
+    finally:
+        scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = geometry
+        for name, lib in defaults.items():
+            _build._libs[(name, ())] = lib
 
 
 def fold_section(dev, sweep: bool = False, trace: bool = False) -> None:
@@ -786,7 +834,7 @@ def main(argv=None) -> int:
         fold_section(dev, ns.sweep, ns.trace)
         bucket_shapes = ()
     if ns.jit:
-        jit_section(dev, ns.jit)
+        jit_section(dev, ns.jit, sweep=ns.sweep)
         bucket_shapes = ()
     if ns.ntt:
         ntt_section(dev, np.random.default_rng(20261018), ns.sweep)

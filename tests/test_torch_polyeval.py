@@ -6,10 +6,11 @@ batch evaluation (M = 3, a repeated point and the point 0) and Kate
 division as values on Fp, Fq and FrBn at n = 3, with the values 0, p,
 p - 1 and 2p - 1 among the coefficients; the launches' preparation (the
 points' tables x^(2^j) and each polynomial's row in them, the row blocks,
-b and b^8 as words); CPU tensors take the plain versions and launch
-nothing, other devices raise.
+b as words); CPU tensors take the plain versions and launch nothing, other
+devices raise.
 On the card (`gpu`): each kernel equals its plain version as values, its
-output in [0, 2p).
+output in [0, 2p); Kate division also at a tile's rows - 1, + 0 and + 1
+and at more than 32 tiles, and after replays of a CUDA graph.
 """
 
 import jax
@@ -23,7 +24,8 @@ from halo2_tpu.ops import field_jax as fj
 from halo2_tpu.ops import polyeval as jpe
 from halo2_tpu_torch.fields import Fp, Fq, FrBn
 from halo2_tpu_torch.ops import field as fo
-from halo2_tpu_torch.ops import polyeval
+from halo2_tpu_torch.ops import polyeval, scan
+from chip_smoke import replayed
 
 torch.set_num_threads(2)
 
@@ -95,10 +97,9 @@ def test_point_tables():
         assert ctx.decode_ints(torch.as_tensor(row)) == [pow(x, 1 << j, p) for j in range(L)]
     assert [polyeval.table_bits(n) for n in (1, 2, 3, 4, 5, 1 << 14)] == [1, 1, 2, 2, 3, 14]
     assert [polyeval.eval_blocks(n) for n in (1, 1024, 1025, 1 << 14)] == [1, 1, 2, 16]
-    b, br = polyeval.kate_words(ctx, p - 5)
+    b = list(polyeval.kate_words(ctx, p - 5))[:8]  # the table's first entry, b^(2^0)
     word = lambda w: sum(v << (32 * i) for i, v in enumerate(w))  # noqa: E731
     assert word(b) == (p - 5) * ctx.r_int % p
-    assert word(br) == pow(p - 5, polyeval.RUN_ROWS, p) * ctx.r_int % p
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -135,3 +136,15 @@ def test_kernels_equal_plain_on_the_card():
             for got, want in outs:
                 assert values(got, F) == values(want, F), (F.__name__, n)
                 assert max(fo.limbs_to_ints(got.reshape(-1, 16))) < 2 * p
+        T = scan.TILE_ROWS
+        for n in (T - 1, T, T + 1, 33 * T + 5):
+            a = limbs(lazy_vals(p, n, n), "cuda")
+            before = polyeval.LAUNCHES["kate_div"]
+            got = polyeval.kate_division_mont(F, a, p - 5)
+            torch.cuda.synchronize()
+            assert polyeval.LAUNCHES["kate_div"] == before + 1
+            want = values(polyeval.kate_division_mont_plain(F, a, p - 5), F)
+            assert values(got, F) == want and want[-1] == 0, (F.__name__, n)
+            assert max(fo.limbs_to_ints(got)) < 2 * p
+            for out in replayed(lambda: polyeval.kate_division_mont(F, a, p - 5)):
+                assert values(out, F) == want, (F.__name__, n, "replay")

@@ -6,7 +6,8 @@ values on Fp, Fq and FrBn, at an n that is not a power of two, with the
 values 0, p (both zeros), 1, p - 1 and 2p - 1 in the first rows; the
 launch's preparation; CPU tensors take the plain versions and launch
 nothing, other devices raise. On the card (`gpu`): the kernel equals its
-plain version as values, its output in [0, 2p).
+plain version as values, its output in [0, 2p), at a tile's rows - 1, + 0
+and + 1 and at more than 32 tiles, also after replays of a CUDA graph.
 """
 
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ from halo2_tpu.ops import scan as jscan
 from halo2_tpu_torch.fields import Fp, Fq, FrBn
 from halo2_tpu_torch.ops import field as fo
 from halo2_tpu_torch.ops import scan
+from chip_smoke import replayed
 
 torch.set_num_threads(2)
 
@@ -67,10 +69,10 @@ def test_plain_scans_match_jax(F, JF):
 def test_launch_args(n):
     vals = limbs(lazy_vals(Fp.MODULUS, n, 3)).t().contiguous().t()  # limb stride n
     init = limbs([5])
-    rows, row, runs = scan.launch_args(vals, init)
+    rows, row, tiles = scan.launch_args(vals, init)
     assert rows.is_contiguous() and torch.equal(rows, vals)
     assert row.shape == (16,) and torch.equal(row, init[0])
-    assert runs == -(-n // scan.RUN_ROWS)
+    assert tiles == -(-n // scan.TILE_ROWS)
     assert scan.launch_args(vals.to(torch.int64))[0].dtype == torch.int32
     with pytest.raises(ValueError, match="expected"):
         scan.launch_args(vals[None])
@@ -97,19 +99,24 @@ def test_cpu_tensors_take_the_plain_version():
 def test_kernel_equals_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU build")
+    T = scan.TILE_ROWS
     for F in (Fp, Fq, FrBn):
         p, ctx = F.MODULUS, fo.FieldCtx(F)
-        for n in (1, 9, 1000, (1 << 12) + 5):
+        for n in (1, 9, 1000, T - 1, T, T + 1, (1 << 12) + 5, 33 * T + 5):
             x = limbs(lazy_vals(p, n, n), "cuda")
             init = limbs([3 * p // 2], "cuda")[0]
-            for kern, plain, extra in (
-                    (scan.prefix_product, scan.prefix_product_plain, ()),
-                    (scan.exclusive_prefix_product, scan.exclusive_prefix_product_plain, ()),
-                    (scan.exclusive_prefix_product, scan.exclusive_prefix_product_plain, (init,)),
-                    (scan.batch_invert, scan.batch_invert_plain, ())):
+            for mode, kern, plain, extra in (
+                    ("inclusive", scan.prefix_product, scan.prefix_product_plain, ()),
+                    ("exclusive", scan.exclusive_prefix_product, scan.exclusive_prefix_product_plain, ()),
+                    ("exclusive", scan.exclusive_prefix_product, scan.exclusive_prefix_product_plain, (init,)),
+                    ("invert", scan.batch_invert, scan.batch_invert_plain, ())):
                 before = scan.LAUNCHES["scan"]
                 got = kern(x, ctx, *extra)
                 torch.cuda.synchronize()
-                assert scan.LAUNCHES["scan"] == before + scan.KERNELS_PER_CALL
-                assert values(got, F) == values(plain(x, ctx, *extra), F), (F.__name__, n, kern)
+                assert scan.LAUNCHES["scan"] == before + scan.KERNELS_PER_CALL[mode]
+                want = values(plain(x, ctx, *extra), F)
+                assert values(got, F) == want, (F.__name__, n, kern)
                 assert max(fo.limbs_to_ints(got)) < 2 * p
+                if n in (T + 1, 33 * T + 5):
+                    for out in replayed(lambda: kern(x, ctx, *extra)):
+                        assert values(out, F) == want, (F.__name__, n, kern, "replay")
