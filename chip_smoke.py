@@ -14,13 +14,15 @@ tile's rows - 1, + 0 and + 1 and 33 tiles, with 0 and p (inverted to 0),
 1, p - 1 and 2p - 1 first, and after replays of a CUDA graph, and its
 inverse of a total (a binary GCD) against the host's pow on 256 values a
 modulus; kernel D's batch
-evaluation at M = 3 (a repeated point and the point 0) and at the largest
-evaluation stack of the k = 14 proof, and its powers of one point and of
-a batch of two; kernel E's Kate division at b = 0, 1, p - 1 and a random
+evaluation at M = 3 (a repeated point and the point 0), at M = 1 and at
+the largest evaluation stack of the k = 14 proof, also after replays of a
+CUDA graph, and its powers of one point and of a batch of two on the card
+and of host points; kernel E's Kate division at b = 0, 1, p - 1 and a random
 b at the sizes of kernel C, also after replays of a CUDA graph; kernel
-F's emit and fold in every round of an opening over 2^14 lanes,
-m = 2^14 down to 2; each timed on Fp at 2^14 beside its bound (C and E
-also at 2^17), C-F each
+F's emit, fold and fused round (a fold and the next round's emit in one
+launch) in every round of an opening over 2^14 lanes, m = 2^14 down to 2,
+the fused round also after replays of a CUDA graph; each timed on Fp at
+2^14 beside its bound (C-E also at 2^17), C-F each
 launched on every proof path but F on the KZG one (phases scan,
 batch_eval, kate_div, ipa_round), and the launches of one proof on each
 path in phase launches_per_proof; kernel A, the
@@ -316,9 +318,9 @@ KERNEL_SYMBOLS = {"cg_ntt_level": ("cg_level_kernel",), "msm_accum": ("accum_ker
                   "msm_fold": ("fold_kernel(",), "msm_lane_reduce": ("lane_reduce_kernel<",),
                   "field_ew": ("ew_kernel<",), "fold_program": ("fold_kernel<",),
                   "scan": ("::scan_kernel<", "invert_prefix_kernel<", "invert_suffix_kernel<"),
-                  "batch_eval": ("power_table_kernel<", "eval_kernel<", "eval_sum_kernel"),
+                  "batch_eval": ("eval_kernel<", "powers_kernel<"),
                   "kate_div": ("kate_kernel<",),
-                  "ipa_round": ("round_emit_kernel<", "round_tail_kernel<", "round_update_kernel<")}
+                  "ipa_round": ("round_kernel<",)}
 
 
 def traced_proof(prove, wrapped):
@@ -391,14 +393,16 @@ def once_ms(fn):
 
 def captured(fn, reps: int):
     """fn() once on a side stream, then `reps` calls of it captured in one
-    CUDA graph: (the graph, the captured calls' outputs)."""
+    CUDA graph on that stream (kernels D and F keep a completion counter a
+    stream, made by the first call): (the graph, the captured calls'
+    outputs)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the stream fn warmed up on
         outs = [fn() for _ in range(reps)]
     return graph, outs
 
@@ -577,15 +581,16 @@ def fold_capture(caps, limit=None):
 
 @contextmanager
 def eval_capture(shapes):
-    """Inside the block, each launch of kernel D's evaluation
-    (ops/polyeval.eval_launch) appends its (M, n, Q) to `shapes`."""
+    """Inside the block, each evaluation by kernel D
+    (ops/polyeval.eval_launch) appends its (M, n, Q) to `shapes`, Q its
+    distinct points."""
     from halo2_tpu_torch.ops import polyeval
 
     original = polyeval.eval_launch
 
-    def launch(coeffs, xtab, sel, ctx):
-        shapes.append((coeffs.shape[0], coeffs.shape[1], xtab.shape[0]))
-        return original(coeffs, xtab, sel, ctx)
+    def launch(coeffs, points, ctx):
+        shapes.append((coeffs.shape[0], coeffs.shape[1], len({int(x) % ctx.p_int for x in points})))
+        return original(coeffs, points, ctx)
 
     polyeval.eval_launch = launch
     try:
@@ -934,34 +939,53 @@ def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 
 
 
 def batch_eval_path(dev, seed: int, eval_m: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17),
-                    timed_n=1 << 14):
+                    timed=(1 << 14, 1 << 17)):
     """Kernel D against its plain versions, as values mod p with outputs in
     [0, 2p), on each modulus at each of `sizes`, each call of the kernel
     under no_sync: batch_eval_mont of M = 3 polynomials at two points (one
-    repeated, one of them 0) and of `eval_m` polynomials at four points,
-    coefficients below 2p with 0, p, p - 1 and 2p - 1 first; device_powers
-    of one point and of a (2,) batch. Then both timed on Fp at `timed_n`
-    rows: the evaluation at M = eval_m (the launches alone, on a table
-    already on the card) and the powers mode."""
+    repeated, one of them 0), of one polynomial at one point and of
+    `eval_m` polynomials at four points, coefficients below 2p with 0, p,
+    p - 1 and 2p - 1 first, at 2^14 + 3 also after replays of a CUDA graph
+    and on two streams at once; at the first size also calls of several
+    launches (40 points, and 300 polynomials at one point); device_powers
+    of one point and of a (2,) batch on the card, and point_powers of a
+    host point. Then each timed on Fp at each of `timed`: the evaluation at
+    M = eval_m, Q = 4 and at M = 1, Q = 1, the powers of a point on the card
+    and of a host point (whole calls: a call copies nothing to the card)."""
     from halo2_tpu_torch import fields
     from halo2_tpu_torch.ops import field_ew, polyeval
     from halo2_tpu_torch.ops.field import FieldCtx
 
     rng = np.random.default_rng(seed)
-    checks = []
+    checks, replays = [], []
     with counts_kept(polyeval, field_ew):
         for name in MODULI:
             F = getattr(fields, name)
             p, ctx = F.MODULUS, FieldCtx(F)
             pts = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
             for n in sizes:
-                for M, points in ((3, [pts[0], 0, pts[0]]), (eval_m, [pts[i % 4] for i in range(eval_m)])):
+                shapes = [(3, [pts[0], 0, pts[0]]), (1, [pts[2]]), (eval_m, [pts[i % 4] for i in range(eval_m)])]
+                if n == sizes[0]:  # more points, or more polynomials, than one launch takes
+                    shapes += [(40, [int(v) % p for v in rng.integers(0, 1 << 62, size=40)]), (300, [pts[1]] * 300)]
+                for M, points in shapes:
                     c = lazy_rows(rng, p, M * n, [0, p, p - 1, 2 * p - 1]).reshape(M, n, 16).to(dev)
+                    launches = len(polyeval.eval_launches(points, p, polyeval.table_bits(n)))
+                    before = polyeval.LAUNCHES["batch_eval"]
                     with no_sync(dev):
                         got = polyeval.batch_eval_mont(F, c, points)
-                    require(values_equal(got, polyeval.batch_eval_mont_plain(F, c, points), ctx),
-                            f"batch_eval_mont {name} M={M} n={n}: kernel != plain")
-                    checks.append(f"{name}:{n}:batch_eval:{M}")
+                    require(polyeval.LAUNCHES["batch_eval"] - before == launches,
+                            f"batch_eval_mont {name} M={M} n={n}: not {launches} launches")
+                    want = polyeval.batch_eval_mont_plain(F, c, points)
+                    require(values_equal(got, want, ctx), f"batch_eval_mont {name} M={M} n={n}: kernel != plain")
+                    checks.append(f"{name}:{n}:batch_eval:{M}:{launches}")
+                    if n == sizes[1]:
+                        require(replay_equal(lambda: polyeval.batch_eval_mont(F, c, points), want, ctx),
+                                f"batch_eval_mont {name} M={M} n={n}: a CUDA graph's replay != plain")
+                        replays.append(f"{name}:{n}:batch_eval:{M}")
+                        require(all(values_equal(out, want, ctx) for out in two_streams(
+                            lambda: polyeval.batch_eval_mont(F, c, points))),
+                                f"batch_eval_mont {name} M={M} n={n}: two streams at once != plain")
+                        checks.append(f"{name}:{n}:batch_eval:{M}:two_streams")
                 x = lazy_rows(rng, p, 2, [pts[1]]).to(dev)
                 for xs in (x[0], x):
                     with no_sync(dev):
@@ -969,27 +993,65 @@ def batch_eval_path(dev, seed: int, eval_m: int, sizes=(1 << 11, (1 << 14) + 3, 
                     require(values_equal(got, polyeval.device_powers_plain(xs, n, ctx), ctx),
                             f"device_powers {name} n={n} lead={tuple(xs.shape[:-1])}: kernel != plain")
                     checks.append(f"{name}:{n}:powers:{tuple(xs.shape[:-1])}")
-        F, n = fields.Fp, timed_n
+                for xv in (pts[3], 0, 1, p - 1):
+                    with no_sync(dev):
+                        got = polyeval.point_powers(ctx, xv, n, dev)
+                    want = polyeval.device_powers_plain(ctx.const(xv, dev), n, ctx)
+                    require(values_equal(got, want, ctx), f"point_powers {name} n={n} x={xv}: kernel != plain")
+                    checks.append(f"{name}:{n}:point_powers:{xv}")
+                    if n == sizes[1] and xv == pts[3]:
+                        require(replay_equal(lambda: polyeval.point_powers(ctx, xv, n, dev), want, ctx),
+                                f"point_powers {name} n={n}: a CUDA graph's replay != plain")
+                        replays.append(f"{name}:{n}:point_powers")
+        F = fields.Fp
         p, ctx = F.MODULUS, FieldCtx(F)
-        shape = f"n=2^{n.bit_length() - 1} (Fp)"
-        points = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
-        points = [points[i % 4] for i in range(eval_m)]
-        c = lazy_rows(rng, p, eval_m * n).reshape(eval_m, n, 16).to(dev)
-        table, sel = polyeval.point_tables(ctx, points, n)
-        xtab, sel = torch.as_tensor(table, device=dev), torch.as_tensor(sel, device=dev)
-        x = lazy_rows(rng, p, 1).to(dev)[0]
-        timing = {
-            # coefficients and table read once, the evaluations written; one
-            # product a coefficient
-            "batch_eval": kernel_row(lambda: polyeval.eval_launch(c, xtab, sel, ctx),
-                                     lambda: polyeval.batch_eval_mont_plain(F, c, points),
-                                     64 * (eval_m * n + xtab.shape[0] * xtab.shape[1] + eval_m) + 4 * eval_m,
-                                     eval_m * n, p, f"M={eval_m} Q=4 {shape}"),
-            "powers": kernel_row(lambda: polyeval.device_powers(x, n, ctx),
-                                 lambda: polyeval.device_powers_plain(x, n, ctx), 64 * (n + 1), n - 1, p, shape),
-        }
-    return dict(checks=len(checks), sizes=list(sizes), moduli=list(MODULI), eval_m=eval_m, exact_values=True,
-                no_sync=True, timing=timing)
+        timing = {}
+        for n in timed:
+            shape = f"n=2^{n.bit_length() - 1} (Fp)"
+            suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
+            L = polyeval.table_bits(n)
+            pts = [int(v) % p for v in rng.integers(1, 1 << 62, size=4)]
+            for key, M, points in (("batch_eval", eval_m, [pts[i % 4] for i in range(eval_m)]),
+                                   ("batch_eval_m1", 1, pts[:1])):
+                c = lazy_rows(rng, p, M * n).reshape(M, n, 16).to(dev)
+                Q = len(set(points))
+                # coefficients read once, the squares taken by value, the
+                # evaluations written; one product a coefficient
+                timing[key + suffix] = kernel_row(
+                    lambda c=c, points=points: polyeval.batch_eval_mont(F, c, points),
+                    lambda c=c, points=points: polyeval.batch_eval_mont_plain(F, c, points),
+                    64 * (M * n + M) + 32 * Q * L, M * n, p, f"M={M} Q={Q} {shape}")
+            x = lazy_rows(rng, p, 1).to(dev)[0]
+            xv = ctx.decode_ints(x[None])[0]
+            # the powers written (and the point, or its squares, read); one
+            # product a power
+            timing["powers" + suffix] = kernel_row(lambda x=x: polyeval.device_powers(x, n, ctx),
+                                                   lambda x=x: polyeval.device_powers_plain(x, n, ctx),
+                                                   64 * (n + 1), n - 1, p, shape + ", a point on the card")
+            timing["point_powers" + suffix] = kernel_row(
+                lambda xv=xv: polyeval.point_powers(ctx, xv, n, dev),
+                lambda x=x: polyeval.device_powers_plain(x, n, ctx), 64 * n + 32 * L, n - 1, p,
+                shape + ", a host point")
+    return dict(checks=len(checks), replays=len(replays), sizes=list(sizes), moduli=list(MODULI), eval_m=eval_m,
+                exact_values=True, no_sync=True, two_streams=True, timing=timing)
+
+
+def two_streams(fn, calls: int = 4):
+    """The outputs of `calls` calls of fn on each of two new streams, issued
+    in turn without waiting, so that the two streams' kernels may run at
+    once (kernels D and F keep a completion counter a stream)."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(calls):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(fn())
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    return outs
 
 
 def kate_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17)):
@@ -1041,16 +1103,18 @@ def kate_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 
 def ipa_round_path(dev, seed: int, log_n: int = 14):
     """Kernel F against its plain version, as values mod p with outputs in
     [0, 2p), on each modulus: every round of an opening over 2^log_n lanes,
-    m = n down to 2, emit and fold on the same inputs (the kernel's fold
-    output feeds the next round), each call of the kernel under no_sync.
-    Then both timed on Fp at m = n."""
+    m = n down to 2, emit, fold and (m >= 4) the fused round (the fold at m,
+    then the emit at m / 2) on the same inputs (the kernel's fold output
+    feeds the next round), each call of the kernel under no_sync, the fused
+    round at m = n and m = 4 also after replays of a CUDA graph and on two
+    streams at once. Then each timed on Fp at m = n."""
     from halo2_tpu_torch import fields
     from halo2_tpu_torch.ops import field_ew, ipa_round
     from halo2_tpu_torch.ops.field import FieldCtx
 
     rng = np.random.default_rng(seed)
     n = 1 << log_n
-    rounds = 0
+    rounds, replays = 0, []
     with counts_kept(ipa_round, field_ew):
         for name in MODULI:
             F = getattr(fields, name)
@@ -1067,9 +1131,23 @@ def ipa_round_path(dev, seed: int, log_n: int = 14):
                         f"ipa_round emit {name} m={m}: kernel != plain")
                 with no_sync(dev):
                     folded = ipa_round.round_fold(pp, b, s, m, um, uim, ctx)
-                for t, want, what in zip(folded, ipa_round.round_fold_plain(pp, b, s, m, um, uim, ctx),
-                                         ("p'", "b", "s_mult")):
+                want_fold = ipa_round.round_fold_plain(pp, b, s, m, um, uim, ctx)
+                for t, want, what in zip(folded, want_fold, ("p'", "b", "s_mult")):
                     require(values_equal(t, want, ctx), f"ipa_round fold {name} m={m} {what}: kernel != plain")
+                if m >= 4:
+                    with no_sync(dev):
+                        fused = ipa_round.round_fold_emit(pp, b, s, m, um, uim, z[0], rands, ctx)
+                    want = (*want_fold, ipa_round.round_emit_plain(*want_fold, m // 2, z[0], rands, ctx))
+                    for t, w, what in zip(fused, want, ("p'", "b", "s_mult", "scalars")):
+                        require(values_equal(t, w, ctx), f"ipa_round fold+emit {name} m={m} {what}: kernel != plain")
+                    if m in (n, 4):
+                        require(replay_equal(lambda: ipa_round.round_fold_emit(pp, b, s, m, um, uim, z[0], rands,
+                                                                               ctx)[3], want[3], ctx),
+                                f"ipa_round fold+emit {name} m={m}: a CUDA graph's replay != plain")
+                        replays.append(f"{name}:{m}")
+                        require(all(values_equal(out, want[3], ctx) for out in two_streams(
+                            lambda: ipa_round.round_fold_emit(pp, b, s, m, um, uim, z[0], rands, ctx)[3])),
+                                f"ipa_round fold+emit {name} m={m}: two streams at once != plain")
                 pp, b, s = folded
                 rounds += 1
                 m //= 2
@@ -1080,6 +1158,13 @@ def ipa_round_path(dev, seed: int, log_n: int = 14):
         um, uim = ctx.const(3, dev), ctx.const(pow(3, -1, p), dev)
         shape = f"n=m=2^{log_n} (Fp)"
         timing = {
+            # p', b and s_mult read, the folded three written, and two rows of
+            # n + 2 of the emit at m / 2; products: the fold's, n + n / 2, the
+            # emit's, a lane and two a lane of its first half (n / 4)
+            "round": kernel_row(lambda: ipa_round.round_fold_emit(pp, b, s, n, um, uim, z, rands, ctx),
+                                lambda: ipa_round.round_fold_emit_plain(pp, b, s, n, um, uim, z, rands, ctx),
+                                64 * (3 * n + 3 * n + 2 * (n + 2) + 5), n + n // 2 + n + n // 2 + 2, p,
+                                shape + ", the fold at m, the emit at m / 2"),
             # p', b, s_mult read, two rows of n + 2 written; a product a lane
             # and two a lane of the first half
             "emit": kernel_row(lambda: ipa_round.round_emit(pp, b, s, n, z, rands, ctx),
@@ -1091,8 +1176,8 @@ def ipa_round_path(dev, seed: int, log_n: int = 14):
                                lambda: ipa_round.round_fold_plain(pp, b, s, n, um, uim, ctx),
                                64 * (6 * n + 2), n + n // 2, p, shape),
         }
-    return dict(rounds=rounds, log_n=log_n, moduli=list(MODULI), exact_values=True, no_sync=True,
-                timing=timing)
+    return dict(rounds=rounds, replays=len(replays), log_n=log_n, moduli=list(MODULI), exact_values=True,
+                no_sync=True, two_streams=True, timing=timing)
 
 
 def planted_failure(prover, tag: str, plant, constraints: int, kind: str = "constraint"):
@@ -1948,11 +2033,11 @@ def main() -> int:
             ("scan", "scan.cu", "halo2_tpu/ops/scan.py:27", scan_res["timing"]["prefix_product"],
              {key: row for key, row in scan_res["timing"].items() if key != "prefix_product"}),
             ("batch_eval", "polyeval.cu", "halo2_tpu/ops/polyeval.py:71", eval_res["timing"]["batch_eval"],
-             {"powers": eval_res["timing"]["powers"]}),
+             {key: row for key, row in eval_res["timing"].items() if key != "batch_eval"}),
             ("kate_div", "polyeval.cu", "halo2_tpu/ops/polyeval.py:137", kate_res["timing"]["kate_div"],
              {key: row for key, row in kate_res["timing"].items() if key != "kate_div"}),
-            ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["emit"],
-             {"fold": ipa_res["timing"]["fold"]})):
+            ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["round"],
+             {key: row for key, row in ipa_res["timing"].items() if key != "round"})):
         errs[name] = 0  # values mod p equal the plain version's
         report[name] = dict(route="cuda", source=f"halo2_tpu_torch/csrc/{source}", replaces=replaces,
                             library_ms=None, **row, timing=more,
@@ -2637,6 +2722,12 @@ def main() -> int:
                       "sinsemilla11": sinsemilla11["launches_by_stage"]["prove_2"],
                       "sha256_k17": sha_proof_launches, "k16": stage_launches["prove"],
                       "mesh14": launches_mesh14}
+    # kernel F: k + 1 device kernels an opening (an emit, k - 1 fused rounds,
+    # the last fold), one opening a proof on every IPA path
+    for path, k_path in (("k14", 14), ("k16", 16), ("poseidon11", 11), ("sinsemilla14", 14),
+                         ("sinsemilla11", 11), ("sha256_k17", 17), ("mesh14", 14), ("kzg14", -1)):
+        require(proof_launches[path]["ipa_round"] == k_path + 1,
+                f"kernel F launched {proof_launches[path]['ipa_round']} times in a {path} proof, not {k_path + 1}")
     emit({"phase": "launches_per_proof", "card": smi,
           "paths": {path: {name: counts[name] for name in (*field_ew.OPS, "field_ew", *ew_kernels[1:],
                                                            *jit_kernels)}

@@ -1,6 +1,6 @@
 // Single-pass scans with a decoupled look-back, shared by kernel C
 // (csrc/scan.cu) and kernel E (csrc/polyeval.cu), and the row loads,
-// stores and block sums of kernels D and F.
+// stores, warp sums and last-block completion of kernels D and F.
 //
 // A scan is one launch over tiles of kTileRows rows (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
@@ -30,8 +30,6 @@
 // graph, not a kernel) before the launch.
 #pragma once
 #include "field.cuh"
-
-constexpr int kRunRows = 8;  // rows a thread of kernel D's evaluation
 
 // A scan's tile geometry; a build with -DSCAN_ROWS / -DSCAN_THREADS is a
 // variant of its own (halo2_tpu_torch/tools/msm_ab.py --jit M --sweep).
@@ -322,10 +320,9 @@ __device__ __forceinline__ void scan_tile(const Op& op, Rows& rows, const Lookba
     if (row[j] < n) rows.emit(j, row[j], op.combine(carry, x[j], x_pw[j]));
 }
 
-// The sum of every thread's v (fe_add_cc) in thread 0; `sh` holds 32
-// values in shared memory. Every thread of the block must call it.
-__device__ __forceinline__ Fe block_sum(Fe v, Fe* sh, const FieldConsts& k) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+// The sum of the warp's 32 v (fe_add_cc) in lane 0; every lane of the
+// warp must call it.
+__device__ __forceinline__ Fe warp_sum(Fe v, const FieldConsts& k) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
     Fe o;
@@ -333,12 +330,82 @@ __device__ __forceinline__ Fe block_sum(Fe v, Fe* sh, const FieldConsts& k) {
     for (int i = 0; i < 8; ++i) o.v[i] = __shfl_down_sync(0xffffffffu, v.v[i], d);
     v = fe_add_cc(v, o, k);  // lanes >= 32 - d add what no one reads
   }
+  return v;
+}
+
+// A value as 8 words at dst (two 16-byte stores), and back with loads that
+// bypass L1 (ld.global.cg), so that a value another block wrote in this
+// launch is read from L2: the partial sums that the last block adds up.
+__device__ __forceinline__ void fe_store_words(uint32_t* dst, const Fe& a) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  d[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+__device__ __forceinline__ Fe fe_load_words_cg(const uint32_t* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const uint4 a = __ldcg(s), b = __ldcg(s + 1);
+  Fe r;
+  r.v[0] = a.x, r.v[1] = a.y, r.v[2] = a.z, r.v[3] = a.w;
+  r.v[4] = b.x, r.v[5] = b.y, r.v[6] = b.z, r.v[7] = b.w;
+  return r;
+}
+
+// The sum of `count` values stored as 8 words each from src on, over the
+// lanes of one warp (`lane` of `lanes`, lanes a multiple of 32 that start
+// on a warp), in each of those warps' lane 0: each lane adds up a strided
+// share with four loads in flight, then the warp's shuffles. The last
+// block's sums of the other blocks' partials.
+__device__ __forceinline__ Fe sum_words(const uint32_t* src, long long count, int lane, int lanes,
+                                        const FieldConsts& k) {
+  Fe v = fe_zero();
+  long long i = lane;
+  for (; i + 3LL * lanes < count; i += 4LL * lanes) {
+    const Fe a = fe_load_words_cg(src + i * 8), b = fe_load_words_cg(src + (i + lanes) * 8);
+    const Fe c = fe_load_words_cg(src + (i + 2LL * lanes) * 8), d = fe_load_words_cg(src + (i + 3LL * lanes) * 8);
+    v = fe_add_cc(v, fe_add_cc(fe_add_cc(a, b, k), fe_add_cc(c, d, k), k), k);
+  }
+  for (; i < count; i += lanes) v = fe_add_cc(v, fe_load_words_cg(src + i * 8), k);
+  return warp_sum(v, k);
+}
+
+// sum_words over every thread of the block, the sum in every thread; `sh`
+// holds 32 values in shared memory. Every thread of the block must call it.
+__device__ __forceinline__ Fe block_sum_words(const uint32_t* src, long long count, Fe* sh, const FieldConsts& k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  Fe v = sum_words(src, count, threadIdx.x, blockDim.x, k);
   if (lane == 0) sh[warp] = v;
   __syncthreads();
-  if (threadIdx.x == 0)
-    for (int w = 1; w < nwarps; ++w) v = fe_add_cc(v, sh[w], k);
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < warps; ++w) v = fe_add_cc(v, sh[w], k);
+    sh[0] = v;
+  }
+  __syncthreads();
+  v = sh[0];
   __syncthreads();  // sh may be used again
   return v;
+}
+
+// Whether this block is the launch's last to finish; every thread of the
+// block must call it, `stored` true in the threads that stored what the
+// last block reads (they fence their stores; the other stores need not be
+// visible to it). Then thread 0 draws a ticket from `counter` (a word in
+// device memory that is 0 when the launch starts); the block that draws the
+// grid's last ticket sees every other block's fenced stores and sets the
+// counter back to 0 for the next launch, so that a call needs no memset
+// and every replay of a CUDA graph starts from 0.
+__device__ __forceinline__ bool last_block(uint32_t* counter, bool stored) {
+  __shared__ bool last;
+  if (stored) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t blocks = gridDim.x * gridDim.y * gridDim.z;
+    last = atomicAdd(counter, 1u) == blocks - 1;
+    if (last) *counter = 0;  // every block has drawn its ticket
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // 16 int32 limbs of row r of an (n, 16) tensor, and back.

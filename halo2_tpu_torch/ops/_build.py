@@ -146,19 +146,47 @@ def ptxas_usage(name: str, defines: Tuple[str, ...] = ()) -> Dict[str, dict]:
     return usage
 
 
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def completion_counter(device: torch.device) -> torch.Tensor:
+    """The completion counter of kernels D and F for the current stream of a
+    CUDA device: one int32 word, 0 between launches (the launch's last block
+    sets it back, see csrc/scan.cuh last_block), made at the first call on
+    that stream. Launches on one stream run one after another, so they take
+    turns on its word; launches on two streams have two words. A CUDA
+    graph's capture cannot make it, so a call on the capturing stream must
+    come first (as a warm-up on that stream does), and the graph's launches
+    keep that stream's word: replay it where no launch on that stream runs
+    at the same time."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("completion_counter: first asked for inside a CUDA graph's capture; "
+                               "call the kernel once on the capturing stream before capturing it")
+        counter = _counters[key] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{index}")
+    return counter
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor (the wrapper launches its kernel), False for a
-    CPU tensor (it runs the plain version); any other device raises."""
-    if t.device.type == "cuda":
+def on_card(t, what: str) -> bool:
+    """True for a CUDA tensor or device (the wrapper launches its kernel),
+    False for a CPU one (it runs the plain version); any other device
+    raises."""
+    dev = torch.device(t) if isinstance(t, (str, torch.device)) else t.device
+    if dev.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    raise ValueError(f"{what}: unsupported device {t.device}")
+    raise ValueError(f"{what}: unsupported device {dev}")
 
 
 def check_tensor(t: torch.Tensor, shape, name: str, device: torch.device, align: int = 0) -> None:

@@ -23,10 +23,10 @@ import torch
 from ...curves import Curve, Point
 from ...hash_to_curve import hash_to_curve
 from ...ops.field import NLIMBS, FieldCtx, add_mod, int_to_limbs, ints_to_limbs, mont_mul
-from ...ops.ipa_round import round_emit, round_fold
+from ...ops.ipa_round import round_emit, round_fold, round_fold_emit
 from ...ops.msm import MSMBases, msm
 from ...ops.msm_bucket import msm_bucket_many
-from ...ops.polyeval import batch_eval_mont, device_powers, kate_division_mont
+from ...ops.polyeval import batch_eval_mont, kate_division_mont, point_powers
 from ...poly import FVec, eval_polynomial_host, lagrange_interpolate_host
 from ...utils.measure import span
 from ..commitment import Blind, ProverQuery, VerifierQuery, construct_intermediate_sets
@@ -333,31 +333,41 @@ def ipa_commit_open(params: ParamsIPA, rng, transcript, p_poly, p_blind: Blind, 
         pprime[0] = ctx.const((p0 - v0) % q, dev)
     f = (s_poly_blind * xi + p_blind.value) % q
 
-    b = device_powers(ctx.const(x_3, dev), n, ctx)  # (n, 16) Montgomery
+    b = point_powers(ctx, x_3, n, dev)  # (n, 16) Montgomery
     s_mult = ctx.one(dev).expand(n, NLIMBS).clone()  # product of folded u_t
     z_mont = ctx.const(z, dev)
 
+    # round j emits L_j, R_j at m = n / 2^j; on the card round j's emit and
+    # round j - 1's fold are one launch (round_fold_emit), so the opening
+    # takes an emit, k - 1 fused rounds and the last fold. A launch's
+    # scalars (u, u^-1 of the fold; the blinding scalars of the emit) go up
+    # in one copy.
     m = n
     l_rand = F.random(rng).v
     r_rand = F.random(rng).v
+    u_j = u_j_inv = None
     for _round in range(params.k):
         with span("ipa: round"):
-            rands = ctx.consts([l_rand, r_rand], dev)
-            scal = round_emit(pprime, b, s_mult, m, z_mont, rands, ctx)
+            if u_j is None:
+                rands = ctx.consts([l_rand, r_rand], dev)
+                scal = round_emit(pprime, b, s_mult, m, z_mont, rands, ctx)
+            else:
+                sc = ctx.consts([u_j, u_j_inv, l_rand, r_rand], dev)
+                pprime, b, s_mult, scal = round_fold_emit(pprime, b, s_mult, 2 * m, sc[0], sc[1], z_mont, sc[2:],
+                                                          ctx)
             l_j, r_j = msm_bucket_many(scal, params._bases_guw)
         transcript.write_point(l_j)
         transcript.write_point(r_j)
 
         u_j = int(transcript.squeeze_challenge())
         u_j_inv = pow(u_j, -1, q)
-        pprime, b, s_mult = round_fold(
-            pprime, b, s_mult, m, ctx.const(u_j, dev), ctx.const(u_j_inv, dev), ctx
-        )
         f = (f + l_rand * u_j_inv + r_rand * u_j) % q
         m //= 2
         if m >= 2:  # draw ORDER matches the reference
             l_rand = F.random(rng).v
             r_rand = F.random(rng).v
+    sc = ctx.consts([u_j, u_j_inv], dev)
+    pprime = round_fold(pprime, b, s_mult, 2 * m, sc[0], sc[1], ctx)[0]
 
     c0 = ctx.decode_ints(pprime[:1])[0]
     transcript.write_scalar(params.curve.SCALAR(c0))

@@ -98,24 +98,32 @@ shape and, with `--proofs`, per proof:
   scans, evaluations, Kate division and IPA rounds as the tree computes
   them (kernels C-F, or rounds of kernel A before them) on Fp at 2^14 rows
   from a numpy seed: prefix_product, exclusive_prefix_product from an
-  init, batch_invert, batch_eval_mont of M polynomials at four points,
-  device_powers, kate_division_mont, and an IPA round's emit and fold at
-  m = n: each call's median CUDA-event ms, whether it waits for the card
-  (a copy to or from the host under torch.cuda.set_sync_debug_mode), its
-  device ms (None where it waits: a CUDA graph cannot hold it), kernel A's
-  launches, the device kernels it launches (a torch.profiler count)
-  and the sha256 of its output's canonical values, which must be equal on
-  the parent and the change; the scans and Kate division also at 2^17 rows
-  (names ending in "_2^17"), the prefix product and batch inversion of one
-  row (a launch's fixed cost, and the inverse of the total; "_n1"); with `--sweep` (trees whose scans take
+  init, batch_invert, batch_eval_mont of M polynomials at four points and
+  of one polynomial at one point ("_m1"), device_powers of a point on the
+  card, point_powers of a host point (device_powers of it on a tree
+  without point_powers), kate_division_mont, an IPA round's emit and fold
+  at m = n, and one round ("round": the fold at m = n and the emit at
+  m / 2, round_fold_emit where the tree has it, else the two calls): each
+  call's median CUDA-event ms, whether it waits for the card (a copy to or
+  from the host under torch.cuda.set_sync_debug_mode), its device ms (None
+  where it waits: a CUDA graph cannot hold it), kernel A's launches, the
+  device kernels it launches (a torch.profiler count) and the sha256 of
+  its output's canonical values, which must be equal on the parent and the
+  change; the scans, Kate division, the evaluations, the powers and the
+  round also at 2^17 rows (names ending in "_2^17"), the prefix product and
+  batch inversion of one row (a launch's fixed cost, and the inverse of the
+  total; "_n1"); with `--sweep` (trees whose scans take
   SCAN_ROWS / SCAN_THREADS), csrc/scan.cu and csrc/polyeval.cu built again
   at each (rows a thread, threads a tile) of SCAN_SWEEP, and for each the
   device ms of those calls at 2^14 and 2^17, whether each output's
   canonical sha256 equals the default build's, and the kernels' registers
-  and spills;
-- BenchCircuit at k = 14 and k = 16 (seed 42, `ChaCha20Rng(b"\\x2a" * 32)`):
-  the sha256 of the proof, prove seconds, and kernels 2-7's launches and
-  CUDA-event milliseconds in the proof.
+  and spills; and (trees whose kernel D has eval_geometry) kernel D's
+  calls at each (groups, rows a thread) of EVAL_GEOMETRY_SWEEP, the same
+  way;
+- BenchCircuit at k = 14 (a first and a warm proof) and k = 16 (seed 42,
+  `ChaCha20Rng(b"\\x2a" * 32)`): the sha256 of the proof, prove seconds,
+  kernels 2-7's launches and CUDA-event milliseconds in the proof, and the
+  host seconds and calls of kernel D's entry points in it (HostSeconds).
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -161,6 +169,9 @@ FOLD_WIDTH_SWEEP = (2, 4, 8)
 # build of csrc/scan.cu and csrc/polyeval.cu; the default is (2, 128)
 SCAN_SWEEP = ((1, 256), (1, 512), (2, 128), (2, 256), (4, 128), (4, 256))
 FOLD_WINDOW_SWEEP = (32, 64, 128)
+# kernel D's (groups of threads a block, rows a thread), in place of the
+# ones its wrapper chooses from the shape
+EVAL_GEOMETRY_SWEEP = ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (4, 1), (4, 2))
 # (kernel 9's, kernel 10's) (threads a block, min blocks an SM of
 # __launch_bounds__), one build of csrc/tile_bench.cu each; the default
 # build's are (256, 1) and (256, 2)
@@ -196,7 +207,7 @@ def device_ms(fn, reps: int = 20) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the stream the calls warmed up on
         for _ in range(reps):
             fn()
     graph.replay()
@@ -401,9 +412,9 @@ def host_functions(cprof, top: int = 20) -> list:
 
 def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
     """The scans, evaluations, powers, Kate division and IPA rounds of the
-    tree on Fp at 2^log_n, the scans and Kate division also at 2^17 (see the
-    module's docstring); the modules are the tree's own: kernels C-F where
-    the tree has them, rounds of kernel A before."""
+    tree on Fp at 2^log_n, and at 2^17 (see the module's docstring); the
+    modules are the tree's own: kernels C-F where the tree has them, rounds
+    of kernel A before."""
     from halo2_tpu_torch.fields import Fp
     from halo2_tpu_torch.ops import field_ew, polyeval, scan
     from halo2_tpu_torch.ops.field import FieldCtx, from_mont
@@ -412,7 +423,19 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         from halo2_tpu_torch.ops.ipa_round import round_emit, round_fold
     except ImportError:  # before kernel F: the rounds in poly/ipa
         from halo2_tpu_torch.poly.ipa import _round_emit as round_emit, _round_fold as round_fold
+    try:
+        from halo2_tpu_torch.ops.ipa_round import round_fold_emit
+    except ImportError:  # before the fused round: the fold, then the emit
+
+        def round_fold_emit(pp, b, s, m, u, uinv, z, rands, ctx):
+            pp, b, s = round_fold(pp, b, s, m, u, uinv, ctx)
+            return pp, b, s, round_emit(pp, b, s, m // 2, z, rands, ctx)
     ctx, p, n = FieldCtx(Fp), Fp.MODULUS, 1 << log_n
+    point_powers = getattr(polyeval, "point_powers", None)
+    if point_powers is None:  # before the powers of a host point
+
+        def point_powers(ctx, x, n, device):
+            return polyeval.device_powers(ctx.const(x, device), n, ctx)
     rng = np.random.default_rng(20261024)
 
     def rows(count):  # Montgomery values below 2p
@@ -426,26 +449,42 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
     points = [points[i % 4] for i in range(eval_m)]
     u, uinv = ctx.const(3, dev), ctx.const(pow(3, -1, p), dev)
     x17 = rows(1 << 17)
+    coeffs17 = rows(eval_m << 17).reshape(eval_m, 1 << 17, 16)
+    pp17, b17, s17 = rows(1 << 17), rows(1 << 17), rows(1 << 17)
     calls = {
         "prefix_product": lambda: scan.prefix_product(x, ctx),
         "exclusive_prefix_product_init": lambda: scan.exclusive_prefix_product(x, ctx, init),
         "batch_invert": lambda: scan.batch_invert(x, ctx),
         "batch_eval_mont": lambda: polyeval.batch_eval_mont(Fp, coeffs, points),
+        "batch_eval_mont_m1": lambda: polyeval.batch_eval_mont(Fp, coeffs[:1], points[:1]),
         "device_powers": lambda: polyeval.device_powers(x[5], n, ctx),
+        "point_powers": lambda: point_powers(ctx, points[1], n, dev),
         "kate_division_mont": lambda: polyeval.kate_division_mont(Fp, x, points[1]),
         "round_emit": lambda: round_emit(pp, b, s, n, z, rands, ctx),
         "round_fold": lambda: torch.stack(round_fold(pp, b, s, n, u, uinv, ctx)),
+        "round": lambda: round_fold_emit(pp, b, s, n, u, uinv, z, rands, ctx),
         "prefix_product_2^17": lambda: scan.prefix_product(x17, ctx),
         "exclusive_prefix_product_init_2^17": lambda: scan.exclusive_prefix_product(x17, ctx, init),
         "batch_invert_2^17": lambda: scan.batch_invert(x17, ctx),
         "kate_division_mont_2^17": lambda: polyeval.kate_division_mont(Fp, x17, points[1]),
+        "batch_eval_mont_2^17": lambda: polyeval.batch_eval_mont(Fp, coeffs17, points),
+        "batch_eval_mont_m1_2^17": lambda: polyeval.batch_eval_mont(Fp, coeffs17[:1], points[:1]),
+        "device_powers_2^17": lambda: polyeval.device_powers(x[5], 1 << 17, ctx),
+        "point_powers_2^17": lambda: point_powers(ctx, points[1], 1 << 17, dev),
+        "round_2^17": lambda: round_fold_emit(pp17, b17, s17, 1 << 17, u, uinv, z, rands, ctx),
         # one row: a launch's fixed cost, and batch inversion's inverse of its total
         "prefix_product_n1": lambda: scan.prefix_product(x[:1], ctx),
         "batch_invert_n1": lambda: scan.batch_invert(x[:1], ctx),
     }
 
-    def canonical_sha256(out):
-        return hashlib.sha256(from_mont(out.reshape(-1, 16), ctx).cpu().numpy().tobytes()).hexdigest()
+    def canonical_sha256(out):  # a tensor, or a tuple of them (one round's outputs)
+        h = hashlib.sha256()
+        for t in (out if isinstance(out, tuple) else (out,)):
+            h.update(from_mont(t.reshape(-1, 16), ctx).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def size(name):
+        return 1 << 17 if name.endswith("_2^17") else 1 if name.endswith("_n1") else n
 
     hashes = {}
     for name, fn in calls.items():
@@ -471,34 +510,58 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         torch.cuda.synchronize()
         dev_ms = None if syncs else device_ms(fn, 10)  # a CUDA graph cannot hold such a copy
         hashes[name] = canonical_sha256(out)
-        emit({"jit": name, "n": x17.shape[0] if name.endswith("_2^17") else 1 if name.endswith("_n1") else n,
-              "M": eval_m if name == "batch_eval_mont" else None,
+        emit({"jit": name, "n": size(name),
+              "M": eval_m if name.startswith("batch_eval_mont") and "_m1" not in name else
+              1 if name.startswith("batch_eval_mont") else None,
               "ms": time_ms(fn), "device_ms": dev_ms, "host_sync": syncs, "kernel_a_launches": a_launches,
               "device_kernels": kernels, "canonical_sha256": hashes[name]})
-    if not sweep or not hasattr(scan, "SCAN_THREADS"):
+    if not sweep:
         return
     from halo2_tpu_torch.ops import _build
 
-    swept = [name for name in calls if name.startswith(("prefix", "exclusive", "batch_invert", "kate"))]
-    defaults = {name: _build.load(name, sig) for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG))}
-    geometry = (scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS)
-    variants = [(f"SCAN_ROWS={r}", f"SCAN_THREADS={t}") for r, t in SCAN_SWEEP]
-    emit({"sweep": "scan_build", "seconds": _build.build_all(["scan", "polyeval"], variants)})
+    def same(names):
+        return all(canonical_sha256(calls[name]()) == hashes[name] for name in names)
+
+    if hasattr(scan, "SCAN_THREADS"):
+        swept = [name for name in calls if name.startswith(("prefix", "exclusive", "batch_invert", "kate"))]
+        defaults = {name: _build.load(name, sig) for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG))}
+        geometry = (scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS)
+        variants = [(f"SCAN_ROWS={r}", f"SCAN_THREADS={t}") for r, t in SCAN_SWEEP]
+        emit({"sweep": "scan_build", "seconds": _build.build_all(["scan", "polyeval"], variants)})
+        try:
+            for (r, t), defs in zip(SCAN_SWEEP, variants):
+                # the wrappers launch the variant's kernels over tiles of r t rows
+                scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = r, t, r * t
+                for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG)):
+                    _build._libs[(name, ())] = _build.load(name, sig, defs)
+                usage = {**_build.ptxas_usage("scan", defs), **_build.ptxas_usage("polyeval", defs)}
+                emit({"sweep": "scan_geometry", "rows": r, "threads": t,
+                      "device_ms": {name: device_ms(calls[name], 10) for name in swept},
+                      "same_canonical": same(swept),
+                      "ptxas": {k: v for k, v in usage.items() if k.startswith(("scan", "invert", "kate"))}})
+        finally:
+            scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = geometry
+            for name, lib in defaults.items():
+                _build._libs[(name, ())] = lib
+    if not hasattr(polyeval, "eval_geometry"):
+        return
+    # kernel D at each (groups G, rows a thread) that its blocks of
+    # EVAL_THREADS allow: the wrapper's eval_geometry replaced for the sweep
+    d_calls = [name for name in calls if name.startswith(("batch_eval_mont", "point_powers"))]
+    chosen = polyeval.eval_geometry
     try:
-        for (r, t), defs in zip(SCAN_SWEEP, variants):
-            # the wrappers launch the variant's kernels over tiles of r t rows
-            scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = r, t, r * t
-            for name, sig in (("scan", scan._SIG), ("polyeval", polyeval._SIG)):
-                _build._libs[(name, ())] = _build.load(name, sig, defs)
-            usage = {**_build.ptxas_usage("scan", defs), **_build.ptxas_usage("polyeval", defs)}
-            emit({"sweep": "scan_geometry", "rows": r, "threads": t,
-                  "device_ms": {name: device_ms(calls[name], 10) for name in swept},
-                  "same_canonical": all(canonical_sha256(calls[name]()) == hashes[name] for name in swept),
-                  "ptxas": {k: v for k, v in usage.items() if k.startswith(("scan", "invert", "kate"))}})
+        for G, rows in EVAL_GEOMETRY_SWEEP:
+
+            def geometry(n, per_point, G=G, rows=rows):
+                g = G if max(per_point) > 0 else 1
+                return g, rows, polyeval.eval_blocks(n, rows, g)
+
+            polyeval.eval_geometry = geometry
+            emit({"sweep": "batch_eval", "groups": G, "rows": rows,
+                  "device_ms": {name: device_ms(calls[name], 10) for name in d_calls},
+                  "same_canonical": same(d_calls)})
     finally:
-        scan.SCAN_ROWS, scan.SCAN_THREADS, scan.TILE_ROWS = geometry
-        for name, lib in defaults.items():
-            _build._libs[(name, ())] = lib
+        polyeval.eval_geometry = chosen
 
 
 def fold_section(dev, sweep: bool = False, trace: bool = False) -> None:
@@ -908,27 +971,80 @@ def main(argv=None) -> int:
                 return out
             return run
 
-        for mod, name in wrapped:
-            setattr(mod, name, timed(name))
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr = Blake2bWrite(Vesta)
-            create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
-            proof = tr.finalize()
-            torch.cuda.synchronize()
-            prove_s = time.perf_counter() - t0
-        finally:
+        for warm in ((False, True) if k == 14 else (False,)):
+            log.clear()
             for mod, name in wrapped:
-                setattr(mod, name, originals[name])
-        ms = {name: 0.0 for name in originals}
-        launches = {name: 0 for name in originals}
-        for name, start, end in log:
-            ms[name] += start.elapsed_time(end)
-            launches[name] += 1
-        emit({"proof_k": k, "sha256": hashlib.sha256(proof).hexdigest(), "bytes": len(proof),
-              "prove_s": prove_s, "launches": launches, "event_ms": ms})
+                setattr(mod, name, timed(name))
+            try:
+                with HostSeconds(KERNEL_D_CALLS) as d_host:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tr = Blake2bWrite(Vesta)
+                    create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+                    proof = tr.finalize()
+                    torch.cuda.synchronize()
+                    prove_s = time.perf_counter() - t0
+            finally:
+                for mod, name in wrapped:
+                    setattr(mod, name, originals[name])
+            ms = {name: 0.0 for name in originals}
+            launches = {name: 0 for name in originals}
+            for name, start, end in log:
+                ms[name] += start.elapsed_time(end)
+                launches[name] += 1
+            emit({"proof_k": k, "warm": warm, "sha256": hashlib.sha256(proof).hexdigest(), "bytes": len(proof),
+                  "prove_s": prove_s, "launches": launches, "event_ms": ms,
+                  "kernel_d_host_s": d_host.seconds, "kernel_d_calls": d_host.calls})
     return 0
+
+
+# the entry points of kernel D that a proof calls (device_powers on trees
+# without point_powers)
+KERNEL_D_CALLS = ("batch_eval_mont", "point_powers", "device_powers")
+
+
+class HostSeconds:
+    """Inside the block, the host's wall seconds in each call of the
+    functions of ops/polyeval named in `names`, wherever a module of the
+    port holds them (a call on the card returns without waiting for it, so
+    this is the wrapper's own host time: its tables, its launch), and the
+    number of calls; a call inside another is counted once."""
+
+    def __init__(self, names):
+        self.names, self.seconds, self.calls, self.depth = names, 0.0, 0, 0
+
+    def __enter__(self):
+        from halo2_tpu_torch.ops import polyeval
+
+        self.saved = []
+        for name in self.names:
+            original = getattr(polyeval, name, None)
+            if original is None:
+                continue
+            wrapper = self.wrap(original)
+            for mod in [m for key, m in sys.modules.items() if key.startswith("halo2_tpu_torch") and m]:
+                if getattr(mod, name, None) is original:
+                    self.saved.append((mod, name, original))
+                    setattr(mod, name, wrapper)
+        return self
+
+    def wrap(self, fn):
+        def run(*args, **kwargs):
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+                if self.depth == 0:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+        return run
+
+    def __exit__(self, *exc):
+        for mod, name, original in self.saved:
+            setattr(mod, name, original)
+        return False
 
 
 if __name__ == "__main__":

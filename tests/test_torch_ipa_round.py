@@ -1,14 +1,19 @@
-"""Kernel F (ops/ipa_round.py, csrc/ipa_round.cu): the emit and fold programs
-of an IPA opening round.
+"""Kernel F (ops/ipa_round.py, csrc/ipa_round.cu): the rounds of an IPA
+opening.
 
 On the CPU: the plain versions equal the JAX package's round pair from
 `halo2_tpu.poly.ipa._ipa_round_fns(field, 32)` as values on Fp, Fq and
 FrBn for every m from 32 down to 2, each round on the previous round's
 fold (the pair is shape-stable, so it compiles once a field, here as one
-program); the launch's preparation; CPU tensors take the plain versions
-and launch nothing, other devices raise. On the card (`gpu`): the kernel
-equals its plain version as values, its outputs in [0, 2p).
+program), and the fused round (a fold at m, then the emit at m / 2) equals
+the JAX fold followed by the JAX emit for every m from 32 down to 4; the
+launch's preparation; CPU tensors take the plain versions and launch
+nothing, other devices raise. On the card (`gpu`): each entry point is one
+launch and equals its plain version as values, its outputs in [0, 2p),
+also after replays of a CUDA graph and on two streams at once.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,8 +64,14 @@ def operands(F, n, seed, device="cpu"):
     return pp, b, s, z, torch.stack([r0, r1]), ctx.const(u, device), ctx.const(pow(u, -1, p), device)
 
 
-@pytest.mark.parametrize("F,JF", FIELDS, ids=IDS)
-def test_plain_rounds_match_jax(F, JF):
+@functools.lru_cache(maxsize=None)
+def jax_rounds(i: int):
+    """Every round of a 32-lane opening on FIELDS[i], m = 32 down to 2, each
+    on the port's plain fold of the round before: (the operands z, rands, u,
+    u^-1, and for each m its inputs p', b, s_mult with the JAX package's emit
+    and fold of them as values). The JAX pair compiles once a field, as one
+    program; the tests that read it share it."""
+    F, JF = FIELDS[i]
     emit, fold = _ipa_round_fns(JF, N)
     jctx = fj.FieldCtx(JF)
 
@@ -70,18 +81,44 @@ def test_plain_rounds_match_jax(F, JF):
 
     tctx = fo.FieldCtx(F)
     pp, b, s, z, rands, u, uinv = operands(F, N, 1)
+    rounds = {}
     m = N
     while m >= 2:
         mrow = jnp.zeros(16, jnp.uint32).at[0].set(m)
         want_scal, want_fold = round_pair(*map(jax_limbs, (pp, b, s)), mrow, jax_limbs(z), jax_limbs(rands),
                                           jax_limbs(torch.stack([u, uinv])))
-        scal = ipa_round.round_emit_plain(pp, b, s, m, z, rands, tctx)
-        assert values(scal, F) == jctx.decode_ints(want_scal.reshape(-1, 16)), m
+        rounds[m] = ((pp, b, s), jctx.decode_ints(want_scal.reshape(-1, 16)),
+                     [jctx.decode_ints(w) for w in want_fold])
+        pp, b, s = ipa_round.round_fold_plain(pp, b, s, m, u, uinv, tctx)
+        m //= 2
+    return (z, rands, u, uinv), rounds
+
+
+@pytest.mark.parametrize("i", range(len(FIELDS)), ids=IDS)
+def test_plain_rounds_match_jax(i):
+    F = FIELDS[i][0]
+    tctx = fo.FieldCtx(F)
+    (z, rands, u, uinv), rounds = jax_rounds(i)
+    for m, ((pp, b, s), want_scal, want_fold) in rounds.items():
+        assert values(ipa_round.round_emit_plain(pp, b, s, m, z, rands, tctx), F) == want_scal, m
         folded = ipa_round.round_fold_plain(pp, b, s, m, u, uinv, tctx)
         for got, want in zip(folded, want_fold):
-            assert values(got, F) == jctx.decode_ints(want), m
-        pp, b, s = folded
-        m //= 2
+            assert values(got, F) == want, m
+
+
+@pytest.mark.parametrize("i", range(len(FIELDS)), ids=IDS)
+def test_plain_fold_emit_matches_jax(i):
+    """round_fold_emit_plain at m against the JAX fold at m followed by the
+    JAX emit at m / 2 (of the folded lanes), for m = 32 down to 4."""
+    F = FIELDS[i][0]
+    tctx = fo.FieldCtx(F)
+    (z, rands, u, uinv), rounds = jax_rounds(i)
+    for m in [m for m in rounds if m >= 4]:
+        (pp, b, s), _, want_fold = rounds[m]
+        *folded, scal = ipa_round.round_fold_emit_plain(pp, b, s, m, u, uinv, z, rands, tctx)
+        assert values(scal, F) == rounds[m // 2][1], m
+        for got, want in zip(folded, want_fold):
+            assert values(got, F) == want, m
 
 
 @pytest.mark.parametrize("m", [2, 8, 32])
@@ -93,7 +130,7 @@ def test_launch_args(m):
     assert all(t.dtype == torch.int32 and t.is_contiguous() for t in tensors)
     assert torch.equal(tensors[0], pp) and torch.equal(tensors[2], s)
     big = limbs(lazy_vals(Fq.MODULUS, 513, 3))
-    assert ipa_round.launch_args(big, big, big, m)[:2] == (513, 3)
+    assert ipa_round.launch_args(big, big, big, m)[:2] == (513, 5)  # blocks of 128 lanes
     with pytest.raises(ValueError, match="expected contiguous int32"):
         ipa_round.launch_args(big, b, s, m)
     for bad in (0, 1, 3, 2 * N):
@@ -110,18 +147,27 @@ def test_cpu_tensors_take_the_plain_version():
     for got, want in zip(ipa_round.round_fold(pp, b, s, 8, u, uinv, ctx),
                          ipa_round.round_fold_plain(pp, b, s, 8, u, uinv, ctx)):
         assert torch.equal(got, want)
+    for got, want in zip(ipa_round.round_fold_emit(pp, b, s, 8, u, uinv, z, rands, ctx),
+                         ipa_round.round_fold_emit_plain(pp, b, s, 8, u, uinv, z, rands, ctx)):
+        assert torch.equal(got, want)
     assert ipa_round.LAUNCHES == before
+    with pytest.raises(ValueError, match="no round to emit"):
+        ipa_round.round_fold_emit(pp, b, s, 2, u, uinv, z, rands, ctx)
     meta = torch.empty((N, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ipa_round.round_emit(meta, meta, meta, 8, meta[0], meta[:2], ctx)
     with pytest.raises(ValueError, match="unsupported device"):
         ipa_round.round_fold(meta, meta, meta, 8, meta[0], meta[0], ctx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ipa_round.round_fold_emit(meta, meta, meta, 8, meta[0], meta[0], meta[0], meta[:2], ctx)
 
 
 @pytest.mark.gpu
 def test_kernel_equals_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU build")
+    from chip_smoke import replayed, two_streams
+
     for F in (Fp, Fq, FrBn):
         ctx, p = fo.FieldCtx(F), F.MODULUS
         for n in (2, 256, 1 << 12):
@@ -131,10 +177,21 @@ def test_kernel_equals_plain_on_the_card():
                 before = ipa_round.LAUNCHES["ipa_round"]
                 scal = ipa_round.round_emit(pp, b, s, m, z, rands, ctx)
                 folded = ipa_round.round_fold(pp, b, s, m, u, uinv, ctx)
+                fused = ipa_round.round_fold_emit(pp, b, s, m, u, uinv, z, rands, ctx) if m >= 4 else ()
                 torch.cuda.synchronize()
-                assert ipa_round.LAUNCHES["ipa_round"] == before + 3
+                assert ipa_round.LAUNCHES["ipa_round"] == before + (3 if m >= 4 else 2)
+                want_fold = ipa_round.round_fold_plain(pp, b, s, m, u, uinv, ctx)
                 pairs = [(scal, ipa_round.round_emit_plain(pp, b, s, m, z, rands, ctx))]
-                pairs += list(zip(folded, ipa_round.round_fold_plain(pp, b, s, m, u, uinv, ctx)))
+                pairs += list(zip(folded, want_fold))
+                if fused:
+                    want_fused = (*want_fold, ipa_round.round_emit_plain(*want_fold, m // 2, z, rands, ctx))
+                    pairs += list(zip(fused, want_fused))
+                    for out in replayed(lambda: ipa_round.round_fold_emit(pp, b, s, m, u, uinv, z, rands,
+                                                                          ctx)[3]):
+                        pairs.append((out, want_fused[3]))
+                    for out in two_streams(lambda: ipa_round.round_fold_emit(pp, b, s, m, u, uinv, z, rands,
+                                                                             ctx)[3]):
+                        pairs.append((out, want_fused[3]))
                 for got, want in pairs:
                     assert values(got, F) == values(want, F), (F.__name__, n, m)
                     assert max(fo.limbs_to_ints(got.reshape(-1, 16))) < 2 * p
