@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the sixteen CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
+Builds the eighteen CUDA kernels from halo2_tpu_torch/csrc with nvcc (sm_90a),
 holds each kernel against its plain torch version on the card at the
-main path's shapes and times both (kernels C-F, the JAX package's jitted
-scans, evaluations, Kate division and IPA rounds, as values mod p with
+main path's shapes and times both (kernels C-H, the JAX package's jitted
+scans, evaluations, Kate division, IPA rounds, grand products and Horner
+fold, as values mod p with
 every output in [0, 2p) on each of the four moduli, each call of a kernel
 under torch.cuda.set_sync_debug_mode("error"), so that a host sync inside
 raises: kernel C's prefix products, inclusive, exclusive and exclusive
@@ -22,10 +23,18 @@ b at the sizes of kernel C, also after replays of a CUDA graph; kernel
 F's emit, fold and fused round (a fold and the next round's emit in one
 launch) in every round of an opening over 2^14 lanes, m = 2^14 down to 2,
 the fused round also after replays of a CUDA graph; each timed on Fp at
-2^14 beside its bound (C-E also at 2^17), C-F each
-launched on every proof path but F on the KZG one (phases scan,
-batch_eval, kate_div, ipa_round), and the launches of one proof on each
-path in phase launches_per_proof; kernel A, the
+2^14 beside its bound (C-E also at 2^17), D-F each
+launched on every proof path but F on the KZG one, C on none since G took
+the z columns (phases scan, batch_eval, kate_div, ipa_round), and the launches of one proof on each
+path in phase launches_per_proof; kernel G's z columns (a lookup's, and six
+permutation chunks of 1-6 columns chained by last_z) and kernel H's fold of
+M = 2, 3 and 7 pieces at 2^11, 2^14 + 3 and 2^17 rows on the four moduli,
+zero and p denominators among G's first rows, also after replays of a CUDA
+graph and on two streams at once, G as values mod p and H bit for bit,
+each timed on Fp at 2^14 and 2^17, three device kernels a z column and one
+launch a proof on every path (phases grand_product, horner), and kernel
+A's launches in a warm k = 14 proof by call site (warm_k14's
+launches_by_site); kernel A, the
 elementwise Montgomery product, sum and difference of ops/field.py on
 the card, bit for bit on
 each of the four moduli at 2^20 elements with the edge values 0, 1, p - 1,
@@ -320,7 +329,9 @@ KERNEL_SYMBOLS = {"cg_ntt_level": ("cg_level_kernel",), "msm_accum": ("accum_ker
                   "scan": ("::scan_kernel<", "invert_prefix_kernel<", "invert_suffix_kernel<"),
                   "batch_eval": ("eval_kernel<", "powers_kernel<"),
                   "kate_div": ("kate_kernel<",),
-                  "ipa_round": ("round_kernel<",)}
+                  "ipa_round": ("round_kernel<",),
+                  "grand_product": ("grand_den_kernel<", "grand_fraction_kernel<", "grand_z_kernel<"),
+                  "horner": ("pieces_horner_kernel<",)}
 
 
 def traced_proof(prove, wrapped):
@@ -807,7 +818,7 @@ def kernel_row(fn, plain, nbytes: int, products: int, p: int, shape: str, reps: 
 
 
 # 32-bit multiplies (mul.wide, mad.lo, mad.hi) of one batch of the inverse
-# in csrc/scan.cu fe_inverse_gcd: update_fg's 4 products a limb over 9
+# in csrc/batch_invert.cuh fe_inverse_gcd: update_fg's 4 products a limb over 9
 # limbs, update_de's 6, and the two products by p^-1 mod 2^30 (its divsteps
 # multiply nothing)
 INV_BATCH_MIX = (90, 2, 0)
@@ -820,6 +831,17 @@ def inverse_s(p: int, batches: int) -> float:
     wide, lo, hi = INV_BATCH_MIX
     per_batch = wide / MUL_RATES["wide"] + lo / MUL_RATES["lo"] + hi / MUL_RATES["hi"]
     return batches * per_batch + product_s(p)
+
+
+def inverse_batches(den, ctx) -> int:
+    """The batches kernel C's (and G's) inverse takes for the total of the
+    nonzero rows of den (Montgomery limbs)."""
+    from halo2_tpu_torch.ops import scan
+
+    p, total = ctx.p_int, 1
+    for v in ctx.decode_ints(den):
+        total = total * v % p if v else total
+    return scan.inverse_model(total * ctx.r_int % p, p)[1]
 
 
 def replay_equal(fn, want, ctx) -> bool:
@@ -915,10 +937,7 @@ def scan_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 
             shape = f"n=2^{n.bit_length() - 1} (Fp)"
             suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
             # the total's inverse takes as many batches as its value needs
-            total = 1
-            for v in ctx.decode_ints(x):
-                total = total * v % p if v else total
-            batches = scan.inverse_model(total * ctx.r_int % p, p)[1]
+            batches = inverse_batches(x, ctx)
             timing.update({
                 f"prefix_product{suffix}": kernel_row(lambda: scan.prefix_product(x, ctx),
                                                       lambda: scan.prefix_product_plain(x, ctx), 128 * n, n - 1,
@@ -1180,6 +1199,238 @@ def ipa_round_path(dev, seed: int, log_n: int = 14):
                 no_sync=True, two_streams=True, timing=timing)
 
 
+def term_to(target: int, added: int, p: int) -> int:
+    """v in [0, 2p) with add_mod(v, added) = target, for a target in
+    (0, 2p] and an addend in [0, 2p): the row value that makes a grand
+    product's term land on 2p (add_mod gives 0) or on p."""
+    v = target - added
+    return v if v >= 0 else v + 2 * p
+
+
+def grand_inputs(rng, F, dev, n: int, ncols: int = 0, edge_rows=(), blinding: int = 5):
+    """Kernel G's inputs on the card, values below 2p with 0, p, p - 1 and
+    2p - 1 among the first rows: a lookup's (ci, ct, pi, pt, beta, gamma,
+    rand_rows) for ncols = 0, else a chunk's (cols, sigmas, omega_pw, beta,
+    gamma, dpows, rand_rows) with omega^i of a random omega (kernel D's
+    point_powers). At the two `edge_rows` the denominator lands on 0 and on
+    p (a' + beta, or column 0's term, set to 2p and to p)."""
+    from halo2_tpu_torch.ops import field_ew, polyeval
+    from halo2_tpu_torch.ops.field import FieldCtx, ints_to_limbs, limbs_to_ints, mont_mul
+
+    p, ctx = F.MODULUS, FieldCtx(F)
+    beta, gamma, omega = (int(v) % p for v in rng.integers(1, 1 << 62, size=3))
+
+    def col(i):
+        return lazy_rows(rng, p, n, [0, p, p - 1, 2 * p - 1][i % 4:])
+
+    def set_row(t, row, v):
+        t[row] = torch.as_tensor(ints_to_limbs([v])[0], device=t.device)
+
+    rand_rows = lazy_rows(rng, p, blinding).to(dev)
+    if not ncols:
+        ci, ct, pi, pt = (col(i) for i in range(4))
+        b = beta * ctx.r_int % p
+        for row, target in zip(edge_rows, (2 * p, p)):
+            set_row(pi, row, term_to(target, b, p))
+        return (*(c.to(dev) for c in (ci, ct, pi, pt)), beta, gamma, rand_rows)
+    cols, sigmas = [col(j) for j in range(ncols)], [col(j + 1).to(dev) for j in range(ncols)]
+    if edge_rows:
+        with counts_kept(field_ew):  # beta sigma_0 as kernel A (and kernel G) forms it
+            bs = limbs_to_ints(mont_mul(sigmas[0][list(edge_rows)], ctx.const(beta, dev), ctx))
+        for row, target, added in zip(edge_rows, (2 * p, p), bs):
+            set_row(cols[0], row, term_to(term_to(target, gamma * ctx.r_int % p, p), added, p))
+    with counts_kept(polyeval):
+        omega_pw = polyeval.point_powers(ctx, omega, n, dev)
+    dpows = [beta * pow(F.DELTA, 7 + j, p) % p for j in range(ncols)]
+    return [c.to(dev) for c in cols], sigmas, omega_pw, beta, gamma, dpows, rand_rows
+
+
+def grand_product_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17),
+                       blinding: int = 5):
+    """Kernel G against its plain versions, as values mod p with outputs in
+    [0, 2p), on each modulus at each of `sizes`, each call of the kernel
+    under no_sync: a lookup's z column with a zero and a p denominator in
+    rows 1 and 2, and six permutation chunks of 1-6 columns chained by
+    last_z (each chunk's init the kernel's last_z of the one before), the
+    last with a zero and a p denominator in rows 1 and 2; at 2^14 + 3 the
+    lookup and a chunk of 2 columns also after replays of a CUDA graph and
+    on two streams at once. Then each timed on Fp at each of `timed`: the
+    lookup, a chunk of 2 columns (BenchCircuit's) and, at the first, of 6
+    (Sinsemilla's)."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, grand_product as gp, polyeval, scan
+    from halo2_tpu_torch.ops.field import FieldCtx, add_mod, mont_mul
+
+    rng = np.random.default_rng(seed)
+    checks, replays = [], []
+    with counts_kept(gp, scan, field_ew, polyeval):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            for n in sizes:
+                lk = grand_inputs(rng, F, dev, n, edge_rows=(1, 2), blinding=blinding)
+                before = gp.LAUNCHES["grand_product"]
+                with no_sync(dev):
+                    got = gp.lookup_z(F, blinding, *lk)
+                require(gp.LAUNCHES["grand_product"] - before == gp.KERNELS_PER_CALL,
+                        f"lookup_z {name} n={n}: not {gp.KERNELS_PER_CALL} device kernels")
+                want = gp.lookup_z_plain(F, blinding, *lk)
+                require(values_equal(got, want, ctx), f"lookup_z {name} n={n}: kernel != plain")
+                require(ctx.decode_ints(got[2:4]) == [0, 0], f"lookup_z {name} n={n}: z after a zero is not 0")
+                checks.append(f"{name}:{n}:lookup")
+                if n == sizes[1]:
+                    require(replay_equal(lambda: gp.lookup_z(F, blinding, *lk), want, ctx),
+                            f"lookup_z {name} n={n}: a CUDA graph's replay != plain")
+                    require(all(values_equal(out, want, ctx) for out in two_streams(
+                        lambda: gp.lookup_z(F, blinding, *lk))), f"lookup_z {name} n={n}: two streams != plain")
+                    replays.append(f"{name}:{n}:lookup")
+                init = plain_init = None
+                for ncols in range(1, 7):
+                    case = grand_inputs(rng, F, dev, n, ncols, (1, 2) if ncols == 6 else (), blinding)
+                    with no_sync(dev):
+                        z, last_z = gp.perm_z(F, blinding, *case[:6], init, case[6])
+                    wz, wlast = gp.perm_z_plain(F, blinding, *case[:6], plain_init, case[6])
+                    require(values_equal(z, wz, ctx) and values_equal(last_z, wlast, ctx),
+                            f"perm_z {name} n={n} ncols={ncols}: kernel != plain")
+                    checks.append(f"{name}:{n}:perm:{ncols}")
+                    if n == sizes[1] and ncols == 2:
+                        require(replay_equal(lambda: gp.perm_z(F, blinding, *case[:6], init, case[6])[0], wz, ctx),
+                                f"perm_z {name} n={n}: a CUDA graph's replay != plain")
+                        require(all(values_equal(out, wz, ctx) for out in two_streams(
+                            lambda: gp.perm_z(F, blinding, *case[:6], init, case[6])[0])),
+                                f"perm_z {name} n={n}: two streams != plain")
+                        replays.append(f"{name}:{n}:perm:2")
+                    init, plain_init = last_z, wlast
+                require(ctx.decode_ints(z[2:4]) == [0, 0], f"perm_z {name} n={n}: z after a zero is not 0")
+        F = fields.Fp
+        p, ctx = F.MODULUS, FieldCtx(F)
+        timing = {}
+        for n in timed:
+            shape = f"n=2^{n.bit_length() - 1} (Fp)"
+            suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
+            lk = grand_inputs(rng, F, dev, n, blinding=blinding)
+            beta_c, gamma_c = ctx.const(lk[4], dev), ctx.const(lk[5], dev)
+            batches = inverse_batches(mont_mul(add_mod(lk[2], beta_c, ctx), add_mod(lk[3], gamma_c, ctx), ctx), ctx)
+            # four columns read and z written; a row's denominator, numerator,
+            # its share of Montgomery's trick (3), its fraction and its prefix
+            timing["lookup_z" + suffix] = kernel_row(
+                lambda lk=lk: gp.lookup_z(F, blinding, *lk), lambda lk=lk: gp.lookup_z_plain(F, blinding, *lk),
+                64 * (5 * n + blinding), 7 * n, p, shape + f", inverse {batches} batches",
+                extra_s=inverse_s(p, batches))
+            for c in (2, 6) if n == timed[0] else (2,):
+                case = grand_inputs(rng, F, dev, n, c, blinding=blinding)
+                init = lazy_rows(rng, p, 1).to(dev)[0]
+                den = None
+                for j in range(c):
+                    t = add_mod(add_mod(case[0][j], mont_mul(case[1][j], ctx.const(case[3], dev), ctx), ctx),
+                                ctx.const(case[4], dev), ctx)
+                    den = t if den is None else mont_mul(den, t, ctx)
+                batches = inverse_batches(den, ctx)
+                # c columns, c sigma columns and omega^i read, z written; a
+                # row's 2c - 1 products of each product, 3 of Montgomery's
+                # trick, its fraction and its prefix
+                timing[f"perm_z_{c}" + suffix] = kernel_row(
+                    lambda case=case, init=init: gp.perm_z(F, blinding, *case[:6], init, case[6])[0],
+                    lambda case=case, init=init: gp.perm_z_plain(F, blinding, *case[:6], init, case[6])[0],
+                    64 * ((2 * c + 2) * n + blinding + 2), (4 * c + 3) * n, p,
+                    shape + f", {c} columns, inverse {batches} batches", extra_s=inverse_s(p, batches))
+    return dict(checks=len(checks), replays=len(replays), sizes=list(sizes), moduli=list(MODULI),
+                blinding=blinding, exact_values=True, no_sync=True, two_streams=True, timing=timing)
+
+
+def horner_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17)):
+    """Kernel H against its plain version bit for bit, on each modulus at
+    each of `sizes`, M = 2, 3 and 7 pieces below 2p with 0, p, p - 1 and
+    2p - 1 first, x random, 0, 1 and p - 1, each call of the kernel under
+    no_sync; at 2^14 + 3 also after replays of a CUDA graph and on two
+    streams at once. Then timed on Fp at each of `timed` at M = 3
+    (BenchCircuit's quotient) and 7 (Sinsemilla's)."""
+    from halo2_tpu_torch import fields
+    from halo2_tpu_torch.ops import field_ew, polyeval
+    from halo2_tpu_torch.ops.field import FieldCtx
+
+    rng = np.random.default_rng(seed)
+    checks, replays = [], []
+    with counts_kept(polyeval, field_ew):
+        for name in MODULI:
+            F = getattr(fields, name)
+            p, ctx = F.MODULUS, FieldCtx(F)
+            for n in sizes:
+                for M in (2, 3, 7):
+                    pieces = list(lazy_rows(rng, p, M * n, [0, p, p - 1, 2 * p - 1]).reshape(M, n, 16).to(dev))
+                    for x in (int(rng.integers(2, 1 << 62)), 0, 1, p - 1):
+                        before = polyeval.LAUNCHES["horner"]
+                        with no_sync(dev):
+                            got = polyeval.horner_fold_mont(F, pieces, x)
+                        require(polyeval.LAUNCHES["horner"] - before == 1, f"horner {name} n={n} M={M}: not one launch")
+                        want = polyeval.horner_fold_mont_plain(F, pieces, x)
+                        require(torch.equal(got, want), f"horner {name} n={n} M={M} x={x}: kernel != plain")
+                        checks.append(f"{name}:{n}:{M}:{x}")
+                    if n == sizes[1]:
+                        require(all(torch.equal(out, want) for out in replayed(
+                            lambda: polyeval.horner_fold_mont(F, pieces, x))),
+                                f"horner {name} n={n} M={M}: a CUDA graph's replay != plain")
+                        require(all(torch.equal(out, want) for out in two_streams(
+                            lambda: polyeval.horner_fold_mont(F, pieces, x))),
+                                f"horner {name} n={n} M={M}: two streams != plain")
+                        replays.append(f"{name}:{n}:{M}")
+        F = fields.Fp
+        p, ctx = F.MODULUS, FieldCtx(F)
+        timing = {}
+        for n in timed:
+            for M in (3, 7):
+                shape = f"n=2^{n.bit_length() - 1} (Fp), M={M}"
+                key = ("horner" if M == 3 else f"horner_m{M}") + ("" if n == timed[0] else f"_2^{n.bit_length() - 1}")
+                pieces = list(lazy_rows(rng, p, M * n).reshape(M, n, 16).to(dev))
+                x = int(rng.integers(2, 1 << 62))
+                # the pieces read and the fold written; M - 1 products a row
+                timing[key] = kernel_row(lambda pieces=pieces, x=x: polyeval.horner_fold_mont(F, pieces, x),
+                                         lambda pieces=pieces, x=x: polyeval.horner_fold_mont_plain(F, pieces, x),
+                                         64 * (M + 1) * n, (M - 1) * n, p, shape)
+    return dict(checks=len(checks), replays=len(replays), sizes=list(sizes), moduli=list(MODULI),
+                bit_for_bit=True, no_sync=True, two_streams=True, timing=timing)
+
+
+@contextmanager
+def kernel_a_sites(sites):
+    """Inside the block, each launch of kernel A adds one to sites[its
+    caller]: the nearest frame that is not kernel A's wrapper
+    (ops/field_ew.py) or one of ops/field.py's elementwise ops, named
+    "path in the package:qualified name"."""
+    from halo2_tpu_torch.ops import field_ew
+
+    launch = field_ew.launch
+    wrappers = {"mont_mul", "add_mod", "sub_mod", "neg_mod", "double_mod", "mont_sqr"}
+
+    def site():
+        f = sys._getframe(2)
+        while f is not None:
+            path, code = f.f_code.co_filename.replace(os.sep, "/"), f.f_code
+            if not (path.endswith("/ops/field_ew.py")
+                    or (path.endswith("/ops/field.py") and code.co_name in wrappers)):
+                break
+            f = f.f_back
+        if f is None:
+            return "?"
+        path = f.f_code.co_filename.replace(os.sep, "/")
+        path = path.split("/halo2_tpu_torch/", 1)[-1] if "/halo2_tpu_torch/" in path else os.path.basename(path)
+        return f"{path}:{getattr(f.f_code, 'co_qualname', f.f_code.co_name)}"
+
+    def counted(op, a, b, ctx):
+        before = field_ew.LAUNCHES[op]
+        out = launch(op, a, b, ctx)
+        if field_ew.LAUNCHES[op] != before:
+            key = site()
+            sites[key] = sites.get(key, 0) + 1
+        return out
+
+    field_ew.launch = counted
+    try:
+        yield sites
+    finally:
+        field_ew.launch = launch
+
+
 def planted_failure(prover, tag: str, plant, constraints: int, kind: str = "constraint"):
     """`plant(prover, advice)` changes cells of `advice`, a copy of the
     prover's witness, and returns the row it planted at. The copy's
@@ -1403,8 +1654,8 @@ def main() -> int:
                                           sha256_k17_message, sinsemilla_k11, sinsemilla_k14)
     from halo2_tpu_torch.curves import Bn254G1, Pallas, Vesta
     from halo2_tpu_torch.fields import Fp, FrBn
-    from halo2_tpu_torch.ops import (_build, field_ew, ipa_round, msm_bucket, msm_sorted, mxu_mont, ntt_cg,
-                                     ntt_mr, polyeval, scan, tile_bench)
+    from halo2_tpu_torch.ops import (_build, field_ew, grand_product, ipa_round, msm_bucket, msm_sorted, mxu_mont,
+                                     ntt_cg, ntt_mr, polyeval, scan, tile_bench)
     from halo2_tpu_torch.ops import fold as fold_ops
     from halo2_tpu_torch.ops import msm as msm_mod
     from halo2_tpu_torch.ops.curve import CurveCtx, PointVec
@@ -1510,7 +1761,7 @@ def main() -> int:
 
     counters = (ntt_cg.LAUNCHES, msm_bucket.LAUNCHES, msm_sorted.LAUNCHES, ntt_mr.LAUNCHES,
                 tile_bench.LAUNCHES, field_ew.LAUNCHES, fold_ops.LAUNCHES, scan.LAUNCHES,
-                polyeval.LAUNCHES, ipa_round.LAUNCHES)
+                polyeval.LAUNCHES, ipa_round.LAUNCHES, grand_product.LAUNCHES)
 
     def zero_launches():
         for counts in counters:
@@ -1532,9 +1783,11 @@ def main() -> int:
 
     k14_kernels = [*ntt_cg.LAUNCHES, *msm_bucket.LAUNCHES]
     ew_kernels = ["field_ew", "fold_program"]  # kernels A and B, on every proof path
-    # kernels C-F: C, D and E on every proof path, F on every IPA path
-    jit_kernels = [*scan.LAUNCHES, *polyeval.LAUNCHES, *ipa_round.LAUNCHES]
-    kzg_jit_kernels = [*scan.LAUNCHES, *polyeval.LAUNCHES]
+    # kernels C-H: D, E, G and H on every proof path, F on every IPA path; C
+    # on none since G took the z columns' scans (its phase scan holds it)
+    jit_kernels = [*scan.LAUNCHES, *polyeval.LAUNCHES, *ipa_round.LAUNCHES, *grand_product.LAUNCHES]
+    path_jit_kernels = [name for name in jit_kernels if name not in scan.LAUNCHES]
+    kzg_jit_kernels = [name for name in path_jit_kernels if name not in ipa_round.LAUNCHES]
     csrc_kernels = [name for counts in counters[:5] for name in counts]  # kernels 1-10
 
     # ---- kernel A: elementwise product, sum and difference, every modulus
@@ -1972,7 +2225,7 @@ def main() -> int:
     except (OpeningError, TranscriptError):
         rejected = True
     require(rejected, "k=14 proof with a flipped byte was accepted")
-    for name in k14_kernels + ew_kernels + jit_kernels:
+    for name in k14_kernels + ew_kernels + path_jit_kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the k=14 path")
     require(launches["mr_col_ntt"] == 0, "kernel 8 ran on the default (NTT unset) k=14 path")
     emit({"phase": "main_path", "circuit": "BenchCircuit", "k": k, "rows": circ.rows,
@@ -2025,10 +2278,17 @@ def main() -> int:
     t0 = time.perf_counter()
     ipa_res = ipa_round_path(dev, 20261023)
     emit({"phase": "ipa_round", **ipa_res, "seconds": time.perf_counter() - t0})
-    ptxas_jit = {name: _build.ptxas_usage(name) for name in ("scan", "polyeval", "ipa_round")}
+    t0 = time.perf_counter()
+    grand_res = grand_product_path(dev, 20261026, blinding=vk.cs.blinding_factors())
+    emit({"phase": "grand_product", **grand_res, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    horner_res = horner_path(dev, 20261027)
+    emit({"phase": "horner", **horner_res, "seconds": time.perf_counter() - t0})
+    ptxas_jit = {name: _build.ptxas_usage(name) for name in ("scan", "polyeval", "ipa_round", "grand_product",
+                                                             "horner")}
     require(all(u.get("spill_bytes") == 0 and u.get("stack_bytes") == 0
                 for usage in ptxas_jit.values() for u in usage.values()),
-            f"kernels C-F: a kernel spills or has a stack frame: {ptxas_jit}")
+            f"kernels C-H: a kernel spills or has a stack frame: {ptxas_jit}")
     for name, source, replaces, row, more in (
             ("scan", "scan.cu", "halo2_tpu/ops/scan.py:27", scan_res["timing"]["prefix_product"],
              {key: row for key, row in scan_res["timing"].items() if key != "prefix_product"}),
@@ -2037,25 +2297,41 @@ def main() -> int:
             ("kate_div", "polyeval.cu", "halo2_tpu/ops/polyeval.py:137", kate_res["timing"]["kate_div"],
              {key: row for key, row in kate_res["timing"].items() if key != "kate_div"}),
             ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["round"],
-             {key: row for key, row in ipa_res["timing"].items() if key != "round"})):
+             {key: row for key, row in ipa_res["timing"].items() if key != "round"}),
+            ("grand_product", "grand_product.cu", "halo2_tpu/plonk/lookup_prover.py:147",
+             grand_res["timing"]["lookup_z"],
+             {key: row for key, row in grand_res["timing"].items() if key != "lookup_z"}),
+            ("horner", "horner.cu", "halo2_tpu/ops/polyeval.py:122", horner_res["timing"]["horner"],
+             {key: row for key, row in horner_res["timing"].items() if key != "horner"})):
         errs[name] = 0  # values mod p equal the plain version's
         report[name] = dict(route="cuda", source=f"halo2_tpu_torch/csrc/{source}", replaces=replaces,
                             library_ms=None, **row, timing=more,
                             registers={key: u["registers"]
                                        for key, u in ptxas_jit[source[:-3]].items()})
 
-    # ---- the same proof again, warm; its launches are those of one proof ----
+    # ---- the same proof again, warm; its launches are those of one proof,
+    # kernel A's also by call site ----
     zero_launches()
     reset_records()
+    a_sites = {}
     t0 = time.perf_counter()
     tr = Blake2bWrite(Vesta)
-    create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+    with kernel_a_sites(a_sites):
+        create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
     require(tr.finalize() == proof, "warm k=14 proof bytes differ from the first")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     warm_launches = read_launches()
+    require(sum(a_sites.values()) == warm_launches["field_ew"], "kernel A's launches by site do not add up")
+    z_columns = len(vk.cs.lookups) + -(-len(vk.cs.permutation.columns) // (vk.cs_degree - 2))
+    require(warm_launches["grand_product"] == grand_product.KERNELS_PER_CALL * z_columns
+            and warm_launches["horner"] == 1,
+            f"warm k=14 proof: kernel G {warm_launches['grand_product']} device kernels for {z_columns} z "
+            f"columns, kernel H {warm_launches['horner']} launches")
+    require(not [site for site in a_sites if site.startswith("ops/grand_product.py")
+                 or "horner_fold_mont" in site], f"warm k=14 proof: a plain z column or fold on the card: {a_sites}")
     emit({"phase": "warm_k14", "prove_s": warm_s, "prove_spans": get_records(),
-          "launches": warm_launches})
+          "launches": warm_launches, "launches_by_site": dict(sorted(a_sites.items(), key=lambda kv: -kv[1]))})
 
     # ---- device time of one warm proof: the four kernels by CUDA events,
     # every kernel on the card by torch.profiler ----
@@ -2711,7 +2987,7 @@ def main() -> int:
     for path, counts in (("k14", launches), ("k16", launches16), ("kzg14", launches_kzg),
                          ("poseidon11", launches_poseidon), ("sinsemilla14", launches_sinsemilla),
                          ("sha256_k17", launches_sha), ("mesh14", launches_mesh14)):
-        for name in ew_kernels + (kzg_jit_kernels if path == "kzg14" else jit_kernels):
+        for name in ew_kernels + (kzg_jit_kernels if path == "kzg14" else path_jit_kernels):
             require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
     # the launches of one proof on each path: a warm one where the path
     # makes one, else the first (sha256_k17, k16; mesh14: a proof on warm
@@ -2728,6 +3004,11 @@ def main() -> int:
                          ("sinsemilla11", 11), ("sha256_k17", 17), ("mesh14", 14), ("kzg14", -1)):
         require(proof_launches[path]["ipa_round"] == k_path + 1,
                 f"kernel F launched {proof_launches[path]['ipa_round']} times in a {path} proof, not {k_path + 1}")
+    # kernel G: three device kernels a z column; kernel H: one launch a proof
+    for path, counts in proof_launches.items():
+        require(counts["horner"] == 1, f"kernel H launched {counts['horner']} times in a {path} proof, not once")
+        require(counts["grand_product"] > 0 and counts["grand_product"] % grand_product.KERNELS_PER_CALL == 0,
+                f"kernel G made {counts['grand_product']} device kernels in a {path} proof, not 3 a z column")
     emit({"phase": "launches_per_proof", "card": smi,
           "paths": {path: {name: counts[name] for name in (*field_ew.OPS, "field_ew", *ew_kernels[1:],
                                                            *jit_kernels)}
@@ -2774,7 +3055,7 @@ def main() -> int:
                         **({key: rec[key] for key in ("x_bound", "timing", "products", "bytes")}
                            if name in jit_kernels else {})})
     require(sorted(report) == sorted(paths), "every kernel has a report row")
-    require(len(report) == 16, "ten kernels and kernels A-F")
+    require(len(report) == 18, "ten kernels and kernels A-H")
     require(all("bn254" in report[name] for name in k14_kernels + k16_kernels),
             "kernels 1-7 each have a BN254 row")
     emit({"kernels": kernels})

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("ntt_cg", "msm_bucket", "msm_sorted", "ntt_mr", "tile_bench", "field_ew", "fold", "scan",
-           "polyeval", "ipa_round")
+           "polyeval", "ipa_round", "grand_product", "horner")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -216,14 +216,22 @@ class FieldConsts(ctypes.Structure):
     ]
 
 
+def words8(v: int):
+    """v in [0, 2^256) as the 8 little-endian 32-bit words a kernel takes by
+    value."""
+    return (ctypes.c_uint32 * 8)(*[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+
+
+def mont_words(p: int, v: int):
+    """The host value v in Montgomery form mod p (R = 2^256) as 8 words."""
+    return words8(v % p * ((1 << 256) % p) % p)
+
+
 @functools.lru_cache(maxsize=None)
 def field_consts(p: int, b3_mont: int = 0) -> FieldConsts:
     """Kernel constants of the field mod p (and of a curve with 3b = b3_mont),
     built once per modulus and shared by every launch."""
-    def words(v):
-        return (ctypes.c_uint32 * 8)(*[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
-
     return FieldConsts(
-        words(p), words(2 * p), words((1 << 256) % p), words(b3_mont),
+        words8(p), words8(2 * p), words8((1 << 256) % p), words8(b3_mont),
         (-pow(p, -1, 1 << 32)) % (1 << 32),
     )

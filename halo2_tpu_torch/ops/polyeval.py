@@ -4,7 +4,7 @@ Counterpart of `halo2_tpu/ops/polyeval.py`:
 
   * `batch_eval_mont`: M stacked polynomials at (few) points;
     `device_powers`: [1, x, ..., x^(n-1)].
-  * `horner_fold_mont`: fold a stack of polynomials by a scalar.
+  * `horner_fold_mont`: fold polynomials by a scalar.
   * `kate_division_mont`: (p(X) - p(b)) / (X - b).
 
 `batch_eval_mont`, `device_powers` / `point_powers` and
@@ -27,8 +27,13 @@ versions' as values mod p.
 The plain versions are the JAX package's algorithms in torch: a
 log-doubling power ladder and a log-depth modular tree sum; for Kate
 division, a Hillis-Steele scan over the reversed coefficients in which
-round r adds b^(2^r) times the array shifted by 2^r. `horner_fold_mont`
-stays a loop of kernel A's products and sums.
+round r adds b^(2^r) times the array shifted by 2^r.
+
+`horner_fold_mont` runs kernel H (`csrc/horner.cu`) for CUDA tensors: one
+launch, a thread a row folding the M pieces in registers, the pieces by
+pointer and x by value in the launch's parameters (`HornerParams`), so the
+caller stacks nothing; its plain version (`horner_fold_mont_plain`) is the
+loop of kernel A's products and sums, which the kernel equals bit for bit.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ MAX_SLOTS = 256
 # kernel D's row blocks over all points at most: four a streaming
 # multiprocessor, all resident at once
 EVAL_MAX_BLOCKS = 528
-LAUNCHES = {"batch_eval": 0, "kate_div": 0}  # kernels D and E: their device kernels
+MAX_PIECES = 64  # csrc/horner.cu kMaxPieces: the pieces kernel H folds
+LAUNCHES = {"batch_eval": 0, "kate_div": 0, "horner": 0}  # kernels D, E and H: their device kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +71,7 @@ _SIG = {
     "polyeval_tile_rows": (),
     "kate_table_entries": (),
 }
+_HORNER_SIG = {"horner_fold": (_P, _P), "horner_params_size": ()}
 
 
 def _lib():
@@ -312,13 +319,69 @@ def batch_eval(
     return FieldCtx(field).decode_ints(batch_eval_mont(field, coeff_stack, points))
 
 
-def horner_fold_mont(field: Type[FieldElement], stack: torch.Tensor, x: int) -> torch.Tensor:
-    """acc = (...(s_0 * x + s_1) * x + ...) + s_{M-1} over (M, n, 16)."""
+class HornerParams(ctypes.Structure):
+    """Host mirror of `HornerParams` in csrc/horner.cu (the launch's
+    parameters)."""
+
+    _fields_ = [("pieces", _P * MAX_PIECES), ("out", _P), ("n", ctypes.c_longlong), ("m", _I),
+                ("x", ctypes.c_uint32 * 8), ("k", _build.FieldConsts)]
+
+
+def _horner_lib():
+    lib = _build.load("horner", _HORNER_SIG)
+    if lib.horner_params_size() != ctypes.sizeof(HornerParams):
+        raise RuntimeError(f"horner_fold: the library's HornerParams has {lib.horner_params_size()} bytes, "
+                           f"not {ctypes.sizeof(HornerParams)}")
+    return lib
+
+
+def horner_params(pieces: Sequence[torch.Tensor], out: torch.Tensor, x: int, ctx: FieldCtx) -> HornerParams:
+    """The parameters of kernel H's launch, every tensor checked: the M
+    pieces (2 <= M <= MAX_PIECES) and out, each (n, 16) contiguous int32 on
+    one device, 16-byte aligned; x as its Montgomery words."""
+    n, dev = out.shape[0], out.device
+    if not 2 <= len(pieces) <= MAX_PIECES:
+        raise ValueError(f"horner_fold_mont: {len(pieces)} pieces; kernel H takes 2-{MAX_PIECES}")
+    for i, t in enumerate((out, *pieces)):
+        _build.check_tensor(t, (n, NLIMBS), "out" if i == 0 else f"piece {i - 1}", dev, align=16)
+    params = HornerParams(out=out.data_ptr(), n=n, m=len(pieces), x=_build.mont_words(ctx.p_int, x),
+                          k=_build.field_consts(ctx.p_int))
+    for i, t in enumerate(pieces):
+        params.pieces[i] = t.data_ptr()
+    return params
+
+
+def horner_launch(pieces: Sequence[torch.Tensor], x: int, ctx: FieldCtx) -> torch.Tensor:
+    """Kernel H on CUDA tensors: one launch, a thread a row."""
+    pieces = [t.to(torch.int32).contiguous() for t in pieces]
+    out = torch.empty_like(pieces[0])
+    if out.shape[0] == 0:
+        return out
+    params = horner_params(pieces, out, x, ctx)
+    err = _horner_lib().horner_fold(ctypes.byref(params), _stream(out.device))
+    _build.check(err, "horner_fold")
+    LAUNCHES["horner"] += 1
+    return out
+
+
+def horner_fold_mont(field: Type[FieldElement], pieces: Sequence[torch.Tensor], x: int) -> torch.Tensor:
+    """acc = (...(s_0 * x + s_1) * x + ...) + s_{M-1} over M pieces of
+    (n, 16) (a sequence of tensors, or an (M, n, 16) stack): on the card one
+    launch of kernel H, which reads the pieces where they lie. M = 1
+    returns the piece."""
+    if len(pieces) == 1:
+        return pieces[0]
+    if _build.on_card(pieces[0], "horner_fold_mont"):
+        return horner_launch(pieces, x, FieldCtx(field))
+    return horner_fold_mont_plain(field, pieces, x)
+
+
+def horner_fold_mont_plain(field: Type[FieldElement], pieces: Sequence[torch.Tensor], x: int) -> torch.Tensor:
     ctx = FieldCtx(field)
-    xm = ctx.const(x, stack.device)
-    acc = stack[0]
-    for i in range(1, stack.shape[0]):
-        acc = add_mod(mont_mul(acc, xm, ctx), stack[i], ctx)
+    xm = ctx.const(x, pieces[0].device)
+    acc = pieces[0]
+    for i in range(1, len(pieces)):
+        acc = add_mod(mont_mul(acc, xm, ctx), pieces[i], ctx)
     return acc
 
 

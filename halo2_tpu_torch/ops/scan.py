@@ -42,7 +42,7 @@ MODES = ("inclusive", "exclusive", "invert")  # csrc/scan.cu scan_rows' mode 0, 
 KERNELS_PER_CALL = {"inclusive": 1, "exclusive": 1, "invert": 2}  # device kernels a call
 LAUNCHES = {"scan": 0}  # kernel C's device kernels
 
-# the inverse (csrc/scan.cu fe_inverse_gcd): batches of INV_STEPS divsteps,
+# the inverse (csrc/batch_invert.cuh fe_inverse_gcd): batches of INV_STEPS divsteps,
 # at most INV_BATCHES (600 divsteps; 590 suffice below 2^256)
 INV_STEPS = 30
 INV_BATCHES = 20
@@ -134,7 +134,7 @@ def _i32(v: int) -> int:
 
 def _divsteps(zeta: int, f0: int, g0: int) -> Tuple[int, Tuple[int, int, int, int]]:
     """INV_STEPS divsteps on the low 32 bits of f and g, in 32-bit words as
-    csrc/scan.cu divsteps_30 takes them (a run of g's zero low bits at once,
+    csrc/batch_invert.cuh divsteps_30 takes them (a run of g's zero low bits at once,
     and up to 8 divsteps that add f to an odd g at once): the new zeta and
     the matrix."""
     m32 = 0xFFFFFFFF
@@ -178,7 +178,7 @@ def _apply(a: List[int], b: List[int], ta: int, tb: int, p30=None, m: int = 0) -
 
 def inverse_model(x: int, p: int) -> Tuple[int, int]:
     """(x^-1 mod p, batches) for x in [1, 2p) not a multiple of p: the
-    kernel's inverse (csrc/scan.cu fe_inverse_gcd) step for step, in the
+    kernel's inverse (csrc/batch_invert.cuh fe_inverse_gcd) step for step, in the
     same 30-bit limbs and batches of INV_STEPS divsteps, at most INV_BATCHES;
     the kernel then multiplies by R^3 (r3_words), which this leaves out."""
     if x >= p:

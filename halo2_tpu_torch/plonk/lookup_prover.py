@@ -7,10 +7,14 @@ with batch-inverted denominators. evaluate: five transcript evals.
 
 Counterpart of `halo2_tpu/plonk/lookup_prover.py`: compression evaluates
 expression ASTs over device-resident Lagrange columns (`plonk/columns.py`),
-and the grand product is tensor code (batch inversion + log-depth prefix
-scan, `ops/scan.py`) replacing the reference's per-row loops
-(`lookup/prover.rs:168-330`). The sort/count `permute_expression_pair` stays
-on the host (one readback of the two compressed columns).
+and the grand product z replaces the reference's per-row loops
+(`lookup/prover.rs:168-330`) as the JAX package's one jitted program
+(`_lookup_z_fn`) did: on the card it is kernel G (`ops/grand_product.py`,
+`csrc/grand_product.cu`: the rows' terms, the batch inversion, the prefix
+product and the blinding rows in three scan launches that read the four
+columns in place), on the CPU its plain version. The sort/count
+`permute_expression_pair` stays on the host (one readback of the two
+compressed columns).
 """
 
 from __future__ import annotations
@@ -20,9 +24,8 @@ from typing import Dict, List
 
 import torch
 
-from ..ops import field as fo
+from ..ops.grand_product import lookup_z
 from ..ops.polyeval import batch_eval
-from ..ops.scan import batch_invert, exclusive_prefix_product
 from ..poly import LAGRANGE, FVec, Polynomial, Rotation
 from ..poly.commitment import Blind, ProverQuery
 from .columns import ProofColumns
@@ -133,39 +136,18 @@ def permute_expression_pair(pk, params, rng, input_vec: FVec, table_vec: FVec):
     return FVec.from_ints(F, permuted_input, dev), FVec.from_ints(F, permuted_table, dev)
 
 
-def _lookup_z(field, blinding: int, ci, ct, pi, pt, beta_c, gamma_c, rand_rows):
-    """The lookup grand-product z column (lookup/prover.rs:168-330).
-
-    z[0] = 1; z[i+1] = z[i] * (a_i + beta)(s_i + gamma) /
-    ((a'_i + beta)(s'_i + gamma)); rows [n-blinding, n) replaced by rand.
-    """
-    ctx = fo.FieldCtx(field)
-    n = ci.shape[0]
-    denom = fo.mont_mul(fo.add_mod(pi, beta_c, ctx), fo.add_mod(pt, gamma_c, ctx), ctx)
-    denom_inv = batch_invert(denom, ctx)
-    product = fo.mont_mul(
-        denom_inv,
-        fo.mont_mul(fo.add_mod(ci, beta_c, ctx), fo.add_mod(ct, gamma_c, ctx), ctx),
-        ctx,
-    )
-    z = exclusive_prefix_product(product, ctx)
-    return torch.cat([z[: n - blinding], rand_rows], dim=0)
-
-
 def commit_product(
     permuted: PermutedLookup, pk, params, domain, beta: int, gamma: int, rng, transcript
 ) -> CommittedLookup:
     F = params.curve.SCALAR
     blinding = pk.vk.cs.blinding_factors()
-    ctx = fo.FieldCtx(F)
-    dev = params.device
 
-    rand_rows = FVec.from_ints(F, [F.random(rng).v for _ in range(blinding)], dev).vals
-    z = _lookup_z(
+    rand_rows = FVec.from_ints(F, [F.random(rng).v for _ in range(blinding)], params.device).vals
+    z = lookup_z(
         F, blinding,
         permuted.compressed_input.vals, permuted.compressed_table.vals,
         permuted.permuted_input.vals, permuted.permuted_table.vals,
-        ctx.const(beta, dev), ctx.const(gamma, dev), rand_rows,
+        beta, gamma, rand_rows,
     )
 
     product_blind = Blind(F.random(rng).v)

@@ -7,10 +7,15 @@ evaluated at x, omega*x (and omega^last*x for non-final sets).
 
 Counterpart of `halo2_tpu/plonk/permutation_prover.py`: the per-chunk grand
 product (the reference's row-parallel running products,
-`permutation/prover.rs:44-160`) is tensor code on the params' device:
-fraction products, Montgomery-trick batch inversion and a log-depth prefix
-product (`ops/scan.py`). The only host work per chunk is the rng draws for
-the blinding rows (transcript-exact ChaCha order preserved).
+`permutation/prover.rs:44-160`), which the JAX package jits as one program
+a chunk (`_perm_z_fn`), is kernel G on the card (`ops/grand_product.py`,
+`csrc/grand_product.cu`: the fraction products, the batch inversion, the
+prefix product from the previous chunk's last z and the blinding rows in
+three scan launches that read the chunk's columns and sigma columns in
+place), its plain version on the CPU. omega^i is a table made once per
+proving key on the params' device (kernel D's `point_powers` on the card)
+and kept beside the sigma columns. The only host work per chunk is the rng
+draws for the blinding rows (transcript-exact ChaCha order preserved).
 """
 
 from __future__ import annotations
@@ -21,9 +26,8 @@ from typing import List
 import torch
 
 from ..ops import field as fo
-from ..ops.polyeval import batch_eval
-from ..ops.ntt import powers
-from ..ops.scan import batch_invert, exclusive_prefix_product
+from ..ops.grand_product import perm_z
+from ..ops.polyeval import batch_eval, point_powers
 from ..poly import LAGRANGE, FVec, Polynomial, Rotation
 from ..poly.commitment import Blind, ProverQuery
 from .columns import ProofColumns
@@ -38,34 +42,6 @@ class CommittedSet:
 @dataclass
 class CommittedPermutation:
     sets: List[CommittedSet]
-
-
-def _perm_z(field, blinding: int, cols, sigmas, omega_pw, beta_c, gamma_c, dpows, init,
-            rand_rows):
-    """One permutation chunk's blinded z column.
-
-    cols/sigmas (ncols, n, 16) mont; omega_pw (n, 16); dpows (ncols, 16)
-    holding beta*delta^(chunk_base+j); beta_c/gamma_c (16,); init (16,) =
-    last_z; rand_rows (blinding, 16). Returns (z (n,16), last_z (16,)).
-    """
-    ctx = fo.FieldCtx(field)
-    n = cols.shape[1]
-    # denominator product: prod_j (v_j + beta*sigma_j + gamma)
-    modified = None
-    for j in range(cols.shape[0]):
-        term = fo.add_mod(fo.add_mod(cols[j], fo.mont_mul(sigmas[j], beta_c, ctx), ctx),
-                          gamma_c, ctx)
-        modified = term if modified is None else fo.mont_mul(modified, term, ctx)
-    modified = batch_invert(modified, ctx)
-    # numerator product: prod_j (v_j + beta*delta^(base+j)*omega^i + gamma)
-    for j in range(cols.shape[0]):
-        term = fo.add_mod(fo.add_mod(cols[j], fo.mont_mul(omega_pw, dpows[j], ctx), ctx),
-                          gamma_c, ctx)
-        modified = fo.mont_mul(modified, term, ctx)
-    z = exclusive_prefix_product(modified, ctx, init=init)
-    last_z = z[n - (blinding + 1)]
-    z = torch.cat([z[: n - blinding], rand_rows], dim=0)
-    return z, last_z
 
 
 def commit_permutation(
@@ -90,29 +66,28 @@ def commit_permutation(
     ctx = fo.FieldCtx(F)
     dev = params.device
 
-    # device sigma columns, uploaded once per pk (deterministic keygen data)
+    # device sigma columns and omega^i, made once per pk (deterministic keygen data)
     sigma_dev = pk.permutation.__dict__.get("_sigma_dev")
     if sigma_dev is None:
         sigma_dev = [
             FVec.from_ints(F, s, dev).vals for s in pk.permutation.permutations
         ]
         pk.permutation._sigma_dev = sigma_dev
-    omega_pw = powers(domain.omega, n, ctx, dev)
+    omega_pw = pk.permutation.__dict__.get("_omega_dev")
+    if omega_pw is None:
+        omega_pw = pk.permutation._omega_dev = point_powers(ctx, domain.omega, n, dev)
 
-    last_z_dev = ctx.const(1, dev)
+    last_z_dev = None  # the first chunk starts from one
     sets = []
     chunks = []  # defer transcript writes until all commits are launched
     for chunk_start in range(0, len(columns), chunk_len):
         chunk_cols = columns[chunk_start : chunk_start + chunk_len]
-        col_stack = torch.stack([cols.column(c).vals for c in chunk_cols])
-        sig_stack = torch.stack(sigma_dev[chunk_start : chunk_start + chunk_len])
-        dpows = ctx.consts(
-            [beta * pow(delta, chunk_start + j, p) % p for j in range(len(chunk_cols))], dev
-        )
+        dpows = [beta * pow(delta, chunk_start + j, p) % p for j in range(len(chunk_cols))]
         rand_rows = FVec.from_ints(F, [F.random(rng).v for _ in range(blinding)], dev).vals
-        z, last_z_dev = _perm_z(
-            F, blinding, col_stack, sig_stack, omega_pw, ctx.const(beta, dev),
-            ctx.const(gamma, dev), dpows, last_z_dev, rand_rows,
+        z, last_z_dev = perm_z(
+            F, blinding, [cols.column(c).vals for c in chunk_cols],
+            sigma_dev[chunk_start : chunk_start + chunk_len], omega_pw, beta, gamma, dpows,
+            last_z_dev, rand_rows,
         )
         blind = Blind(F.random(rng).v)
         chunks.append((FVec(F, z), blind))

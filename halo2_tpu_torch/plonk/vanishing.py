@@ -80,11 +80,12 @@ def construct(committed: Committed, params, domain, h_poly: Polynomial, rng, tra
 
 def evaluate(constructed: Constructed, x: int, xn: int, domain, transcript) -> Evaluated:
     """Collapse h pieces by x^n Horner on device (reference
-    vanishing/prover.rs:147-174)."""
+    vanishing/prover.rs:147-174): on the card one launch of kernel H, which
+    reads the pieces in place, the last one first."""
     F = domain.field
     p = F.MODULUS
-    stack = torch.stack([piece.vec.vals for piece in reversed(constructed.h_pieces)])
-    h_poly = Polynomial(COEFF, FVec(F, horner_fold_mont(F, stack, xn)))
+    pieces = [piece.vec.vals for piece in reversed(constructed.h_pieces)]
+    h_poly = Polynomial(COEFF, FVec(F, horner_fold_mont(F, pieces, xn)))
     h_blind = 0
     for blind in reversed(constructed.h_blinds):
         h_blind = (h_blind * xn + blind.value) % p

@@ -5,7 +5,7 @@ two trees (a parent commit unpacked beside the checkout, and the checkout)
 can be read on one card in one run.
 
     python3 halo2_tpu_torch/tools/msm_ab.py [--tree DIR] [--sorted] [--ntt] [--tile] [--fold]
-                                            [--jit M] [--sweep] [--trace] [--proofs]
+                                            [--jit M] [--sites] [--sweep] [--trace] [--proofs]
 
 It imports `halo2_tpu_torch` from DIR (default: the checkout this file lies
 in), so run it as a script, not with `-m`. It prints one JSON line per
@@ -106,13 +106,19 @@ shape and, with `--proofs`, per proof:
   m / 2, round_fold_emit where the tree has it, else the two calls): each
   call's median CUDA-event ms, whether it waits for the card (a copy to or
   from the host under torch.cuda.set_sync_debug_mode), its device ms (None
-  where it waits: a CUDA graph cannot hold it), kernel A's launches, the
+  where it waits: a CUDA graph cannot hold it), the card's busy ms in one
+  call (the traced durations of its device operations, which a call that
+  waits has too), kernel A's launches, the
   device kernels it launches (a torch.profiler count) and the sha256 of
   its output's canonical values, which must be equal on the parent and the
   change; the scans, Kate division, the evaluations, the powers and the
   round also at 2^17 rows (names ending in "_2^17"), the prefix product and
   batch inversion of one row (a launch's fixed cost, and the inverse of the
-  total; "_n1"); with `--sweep` (trees whose scans take
+  total; "_n1"); and the grand products' z columns and the Horner fold as
+  the tree computes them (kernels G and H, or its provers' z columns and its
+  stacked fold on kernels A and C before them): a lookup's z column, a
+  permutation chunk's of 2 and of 6 columns and the fold of 3 pieces, at
+  2^14 and (but the 6 columns) 2^17; with `--sweep` (trees whose scans take
   SCAN_ROWS / SCAN_THREADS), csrc/scan.cu and csrc/polyeval.cu built again
   at each (rows a thread, threads a tile) of SCAN_SWEEP, and for each the
   device ms of those calls at 2^14 and 2^17, whether each output's
@@ -120,6 +126,12 @@ shape and, with `--proofs`, per proof:
   and spills; and (trees whose kernel D has eval_geometry) kernel D's
   calls at each (groups, rows a thread) of EVAL_GEOMETRY_SWEEP, the same
   way;
+- with `--sites`, in place of the bucket shapes: kernel A's launches in a
+  first and a warm BenchCircuit k = 14 proof by call site (the calling
+  function, as this checkout's chip_smoke.kernel_a_sites names it), with the
+  proof's sha256 and the launches of kernels C-H that the tree has, and the
+  seconds of the host loop that built omega^i for every proof before kernel
+  G (ops/ntt.py powers at 2^14);
 - BenchCircuit at k = 14 (a first and a warm proof) and k = 16 (seed 42,
   `ChaCha20Rng(b"\\x2a" * 32)`): the sha256 of the proof, prove seconds,
   kernels 2-7's launches and CUDA-event milliseconds in the proof, and the
@@ -431,6 +443,7 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
             pp, b, s = round_fold(pp, b, s, m, u, uinv, ctx)
             return pp, b, s, round_emit(pp, b, s, m // 2, z, rands, ctx)
     ctx, p, n = FieldCtx(Fp), Fp.MODULUS, 1 << log_n
+    lookup_z, perm_z, horner_fold = z_columns(Fp, ctx, dev)
     point_powers = getattr(polyeval, "point_powers", None)
     if point_powers is None:  # before the powers of a host point
 
@@ -451,6 +464,14 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
     x17 = rows(1 << 17)
     coeffs17 = rows(eval_m << 17).reshape(eval_m, 1 << 17, 16)
     pp17, b17, s17 = rows(1 << 17), rows(1 << 17), rows(1 << 17)
+    # a z column's inputs: four columns of a lookup (a chunk takes the first
+    # c as its columns, the next c as its sigma columns), omega^i, the
+    # blinding rows; three quotient pieces
+    zc, zc17 = [rows(n) for _ in range(12)], [rows(1 << 17) for _ in range(4)]
+    omega, omega17 = rows(n), rows(1 << 17)
+    beta, gamma = points[0], points[1]
+    blind = rows(5)
+    dp6 = [beta * (j + 2) % p for j in range(6)]
     calls = {
         "prefix_product": lambda: scan.prefix_product(x, ctx),
         "exclusive_prefix_product_init": lambda: scan.exclusive_prefix_product(x, ctx, init),
@@ -475,6 +496,15 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         # one row: a launch's fixed cost, and batch inversion's inverse of its total
         "prefix_product_n1": lambda: scan.prefix_product(x[:1], ctx),
         "batch_invert_n1": lambda: scan.batch_invert(x[:1], ctx),
+        # the grand products' z columns and the Horner fold (kernels G and H,
+        # or kernel A around kernel C before them)
+        "lookup_z": lambda: lookup_z(zc[:4], beta, gamma, blind),
+        "perm_z_2": lambda: perm_z(zc[:2], zc[2:4], omega, beta, gamma, dp6[:2], init, blind),
+        "perm_z_6": lambda: perm_z(zc[:6], zc[6:12], omega, beta, gamma, dp6, init, blind),
+        "horner_fold": lambda: horner_fold(zc[:3], points[2]),
+        "lookup_z_2^17": lambda: lookup_z(zc17, beta, gamma, blind),
+        "perm_z_2_2^17": lambda: perm_z(zc17[:2], zc17[2:4], omega17, beta, gamma, dp6[:2], init, blind),
+        "horner_fold_2^17": lambda: horner_fold(zc17[:3], points[2]),
     }
 
     def canonical_sha256(out):  # a tensor, or a tuple of them (one round's outputs)
@@ -492,13 +522,16 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         before = sum(field_ew.LAUNCHES.values())
         fn()
         a_launches = sum(field_ew.LAUNCHES.values()) - before
-        kernels = 0
+        traces = []
         for _ in range(3):  # a profiler session now and then misses kernels, never invents one
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            kernels = max(kernels, sum(1 for e in prof.events()
-                                       if e.device_type == torch.autograd.DeviceType.CUDA))
+            events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            traces.append((len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3))
+        kernels = max(count for count, _ in traces)
+        # the card's busy ms in the call: its device operations' traced durations
+        busy_ms = min(busy for count, busy in traces if count == kernels)
         torch.cuda.set_sync_debug_mode("error")
         try:
             fn()
@@ -513,8 +546,8 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         emit({"jit": name, "n": size(name),
               "M": eval_m if name.startswith("batch_eval_mont") and "_m1" not in name else
               1 if name.startswith("batch_eval_mont") else None,
-              "ms": time_ms(fn), "device_ms": dev_ms, "host_sync": syncs, "kernel_a_launches": a_launches,
-              "device_kernels": kernels, "canonical_sha256": hashes[name]})
+              "ms": time_ms(fn), "device_ms": dev_ms, "traced_busy_ms": busy_ms, "host_sync": syncs,
+              "kernel_a_launches": a_launches, "device_kernels": kernels, "canonical_sha256": hashes[name]})
     if not sweep:
         return
     from halo2_tpu_torch.ops import _build
@@ -562,6 +595,92 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
                   "same_canonical": same(d_calls)})
     finally:
         polyeval.eval_geometry = chosen
+
+
+def z_columns(F, ctx, dev):
+    """(lookup_z(cols, beta, gamma, rand_rows), perm_z(cols, sigmas, omega_pw,
+    beta, gamma, dpows, init, rand_rows) -> z, horner_fold(pieces, x)) as the
+    tree computes them: kernels G and H where it has them, else its
+    provers' z columns and its stacked fold (kernel A around kernel C)."""
+    from halo2_tpu_torch.ops import polyeval
+
+    try:
+        from halo2_tpu_torch.ops import grand_product as gp
+    except ImportError:  # before kernel G
+        from halo2_tpu_torch.plonk.lookup_prover import _lookup_z
+        from halo2_tpu_torch.plonk.permutation_prover import _perm_z
+
+        def lookup_z(cols, beta, gamma, rand_rows):
+            return _lookup_z(F, rand_rows.shape[0], *cols, ctx.const(beta, dev), ctx.const(gamma, dev), rand_rows)
+
+        def perm_z(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
+            return _perm_z(F, rand_rows.shape[0], torch.stack(cols), torch.stack(sigmas), omega_pw,
+                           ctx.const(beta, dev), ctx.const(gamma, dev), ctx.consts(dpows, dev), init, rand_rows)[0]
+
+        def horner_fold(pieces, x):
+            return polyeval.horner_fold_mont(F, torch.stack(pieces), x)
+
+        return lookup_z, perm_z, horner_fold
+
+    def lookup_z(cols, beta, gamma, rand_rows):
+        return gp.lookup_z(F, rand_rows.shape[0], *cols, beta, gamma, rand_rows)
+
+    def perm_z(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
+        return gp.perm_z(F, rand_rows.shape[0], cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows)[0]
+
+    def horner_fold(pieces, x):
+        return polyeval.horner_fold_mont(F, pieces, x)
+
+    return lookup_z, perm_z, horner_fold
+
+
+def sites_section(dev) -> None:
+    """Kernel A's launches in a warm BenchCircuit k = 14 proof by call site
+    (this checkout's chip_smoke.kernel_a_sites on the tree's code), with the
+    proof's sha256 and its launches of each kernel C-H the tree has."""
+    from halo2_tpu_torch.circuits import bench_circuit_for_k
+    from halo2_tpu_torch.curves import Vesta
+    from halo2_tpu_torch.ops import field_ew
+    from halo2_tpu_torch.plonk.keygen import keygen_pk, keygen_vk
+    from halo2_tpu_torch.plonk.prover import create_proof
+    from halo2_tpu_torch.poly.ipa import ParamsIPA
+    from halo2_tpu_torch.transcript import Blake2bWrite
+    from halo2_tpu_torch.utils.chacha import ChaCha20Rng
+    import importlib
+
+    cs = self_chip_smoke()
+    params = ParamsIPA.cached(Vesta, 14, device=dev)
+    circ = bench_circuit_for_k(14)
+    vk = keygen_vk(params, circ.without_witnesses())
+    pk = keygen_pk(params, vk, circ.without_witnesses())
+    counters = {}
+    for name in ("scan", "polyeval", "ipa_round", "grand_product"):
+        try:
+            counters.update({key: (mod, key) for mod in (importlib.import_module(f"halo2_tpu_torch.ops.{name}"),)
+                             for key in mod.LAUNCHES})
+        except ImportError:
+            pass
+    # the per-proof omega^i table of the provers before kernel G: a host loop
+    from halo2_tpu_torch.ops.field import FieldCtx
+    from halo2_tpu_torch.ops.ntt import powers
+
+    ctx = FieldCtx(vk.domain.field)
+    t0 = time.perf_counter()
+    powers(vk.domain.omega, params.n, ctx, dev)
+    torch.cuda.synchronize()
+    emit({"sites": "omega_table", "n": params.n, "host_s": time.perf_counter() - t0})
+    for proof in ("first", "warm"):
+        sites = {}
+        before = {key: mod.LAUNCHES[key] for key, (mod, _) in counters.items()}
+        a_before = sum(field_ew.LAUNCHES.values())
+        tr = Blake2bWrite(Vesta)
+        with cs.kernel_a_sites(sites):
+            create_proof(params, pk, [circ], [[]], ChaCha20Rng(b"\x2a" * 32), tr)
+        torch.cuda.synchronize()
+        emit({"sites": proof, "proof_sha256": hashlib.sha256(tr.finalize()).hexdigest(),
+              "kernel_a_launches": sum(field_ew.LAUNCHES.values()) - a_before,
+              "launches": {key: mod.LAUNCHES[key] - before[key] for key, (mod, _) in counters.items()},
+              "launches_by_site": dict(sorted(sites.items(), key=lambda kv: -kv[1]))})
 
 
 def fold_section(dev, sweep: bool = False, trace: bool = False) -> None:
@@ -862,7 +981,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fold", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--jit", type=int, default=0, metavar="M",
-                    help="kernels C-F (or their plain rounds), kernel D at M polynomials")
+                    help="kernels C-H (or their plain rounds), kernel D at M polynomials")
+    ap.add_argument("--sites", action="store_true",
+                    help="kernel A's launches in a k = 14 proof by call site")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("msm_ab: CUDA is not available", file=sys.stderr)
@@ -898,6 +1019,9 @@ def main(argv=None) -> int:
         bucket_shapes = ()
     if ns.jit:
         jit_section(dev, ns.jit, sweep=ns.sweep)
+        bucket_shapes = ()
+    if ns.sites:
+        sites_section(dev)
         bucket_shapes = ()
     if ns.ntt:
         ntt_section(dev, np.random.default_rng(20261018), ns.sweep)

@@ -161,6 +161,22 @@ def test_point_tables():
     assert word(b) == (p - 5) * ctx.r_int % p
 
 
+@pytest.mark.parametrize("M", [1, 3, 7])
+def test_plain_horner_fold_matches_jax(M):
+    """horner_fold_mont_plain (kernel H's plain version) against the JAX
+    package's horner_fold_mont (its jitted _horner_fold_kernel; M = 1 returns
+    the piece) on N rows, 0, p, p - 1 and 2p - 1 among the coefficients;
+    the public entry point on CPU tensors, from a list or a stack."""
+    F, JF = FIELDS[2] if M == 3 else FIELDS[0]
+    p = F.MODULUS
+    stack, jstack = both(lazy_vals(p, M * N, 10 + M), (M, N))
+    x = (p - 1) // 3 + M
+    got = polyeval.horner_fold_mont_plain(F, list(stack), x)
+    assert values(got, F) == fj.FieldCtx(JF).decode_ints(jpe.horner_fold_mont(JF, jstack, x))
+    assert torch.equal(polyeval.horner_fold_mont(F, list(stack), x), got)
+    assert torch.equal(polyeval.horner_fold_mont(F, stack, x), got)
+
+
 def test_cpu_tensors_take_the_plain_version():
     ctx = fo.FieldCtx(Fp)
     p = Fp.MODULUS
