@@ -26,12 +26,14 @@ the fused round also after replays of a CUDA graph; each timed on Fp at
 2^14 beside its bound (C-E also at 2^17), D-F each
 launched on every proof path but F on the KZG one, C on none since G took
 the z columns (phases scan, batch_eval, kate_div, ipa_round), and the launches of one proof on each
-path in phase launches_per_proof; kernel G's z columns (a lookup's, and six
-permutation chunks of 1-6 columns chained by last_z) and kernel H's fold of
-M = 2, 3 and 7 pieces at 2^11, 2^14 + 3 and 2^17 rows on the four moduli,
-zero and p denominators among G's first rows, also after replays of a CUDA
-graph and on two streams at once, G as values mod p and H bit for bit,
-each timed on Fp at 2^14 and 2^17, three device kernels a z column and one
+path in phase launches_per_proof; kernel G's z columns (a lookup's alone,
+six permutation chunks of 1-6 columns chained by last_z in one call, and
+BenchCircuit's call of a lookup and a chunk of 2 columns) and kernel H's
+fold of M = 2, 3 and 7 pieces at 2^11, 2^14 + 3 and 2^17 rows on the four
+moduli, zero and p denominators in G's first row, middle, row u and last
+blinding row, also after replays of a CUDA graph and on two streams at
+once, G as values mod p and H bit for bit, each timed on Fp at 2^14 and
+2^17, two device kernels (one call) for every z column of a proof and one
 launch a proof on every path (phases grand_product, horner), and kernel
 A's launches in a warm k = 14 proof by call site (warm_k14's
 launches_by_site); kernel A, the
@@ -330,7 +332,7 @@ KERNEL_SYMBOLS = {"cg_ntt_level": ("cg_level_kernel",), "msm_accum": ("accum_ker
                   "batch_eval": ("eval_kernel<", "powers_kernel<"),
                   "kate_div": ("kate_kernel<",),
                   "ipa_round": ("round_kernel<",),
-                  "grand_product": ("grand_den_kernel<", "grand_fraction_kernel<", "grand_z_kernel<"),
+                  "grand_product": ("grand_forward_kernel<", "grand_backward_kernel<"),
                   "horner": ("pieces_horner_kernel<",)}
 
 
@@ -1207,18 +1209,22 @@ def term_to(target: int, added: int, p: int) -> int:
     return v if v >= 0 else v + 2 * p
 
 
-def grand_inputs(rng, F, dev, n: int, ncols: int = 0, edge_rows=(), blinding: int = 5):
+def grand_inputs(rng, F, dev, n: int, ncols: int = 0, edge_rows=(), blinding: int = 5, shared=None):
     """Kernel G's inputs on the card, values below 2p with 0, p, p - 1 and
     2p - 1 among the first rows: a lookup's (ci, ct, pi, pt, beta, gamma,
     rand_rows) for ncols = 0, else a chunk's (cols, sigmas, omega_pw, beta,
     gamma, dpows, rand_rows) with omega^i of a random omega (kernel D's
-    point_powers). At the two `edge_rows` the denominator lands on 0 and on
-    p (a' + beta, or column 0's term, set to 2p and to p)."""
+    point_powers); `shared`: the call's (beta, gamma, omega) instead of
+    random ones. At the `edge_rows` the denominator lands on 0 and on p in
+    turn (a' + beta, or column 0's term, set to 2p and to p)."""
     from halo2_tpu_torch.ops import field_ew, polyeval
     from halo2_tpu_torch.ops.field import FieldCtx, ints_to_limbs, limbs_to_ints, mont_mul
 
     p, ctx = F.MODULUS, FieldCtx(F)
     beta, gamma, omega = (int(v) % p for v in rng.integers(1, 1 << 62, size=3))
+    if shared is not None:
+        beta, gamma, omega = shared
+    targets = [(2 * p, p)[i % 2] for i in range(len(edge_rows))]
 
     def col(i):
         return lazy_rows(rng, p, n, [0, p, p - 1, 2 * p - 1][i % 4:])
@@ -1230,14 +1236,14 @@ def grand_inputs(rng, F, dev, n: int, ncols: int = 0, edge_rows=(), blinding: in
     if not ncols:
         ci, ct, pi, pt = (col(i) for i in range(4))
         b = beta * ctx.r_int % p
-        for row, target in zip(edge_rows, (2 * p, p)):
+        for row, target in zip(edge_rows, targets):
             set_row(pi, row, term_to(target, b, p))
         return (*(c.to(dev) for c in (ci, ct, pi, pt)), beta, gamma, rand_rows)
     cols, sigmas = [col(j) for j in range(ncols)], [col(j + 1).to(dev) for j in range(ncols)]
     if edge_rows:
         with counts_kept(field_ew):  # beta sigma_0 as kernel A (and kernel G) forms it
             bs = limbs_to_ints(mont_mul(sigmas[0][list(edge_rows)], ctx.const(beta, dev), ctx))
-        for row, target, added in zip(edge_rows, (2 * p, p), bs):
+        for row, target, added in zip(edge_rows, targets, bs):
             set_row(cols[0], row, term_to(term_to(target, gamma * ctx.r_int % p, p), added, p))
     with counts_kept(polyeval):
         omega_pw = polyeval.point_powers(ctx, omega, n, dev)
@@ -1245,17 +1251,44 @@ def grand_inputs(rng, F, dev, n: int, ncols: int = 0, edge_rows=(), blinding: in
     return [c.to(dev) for c in cols], sigmas, omega_pw, beta, gamma, dpows, rand_rows
 
 
+def grand_call(F, blinding, call, lookups, circuits, inits=None, plain=False, joined=True):
+    """A z_columns call (z_columns_plain with `plain`) with the call's
+    (beta, gamma, ...) of the lookups and of each circuit's chunks of
+    grand_inputs, each circuit's chained from its entry of `inits` (one
+    where that is None): what z_columns returns or, with `joined`, its
+    outputs as one (rows, 16) tensor, each lookup's z, each chunk's z, then
+    each chunk's last_z."""
+    from halo2_tpu_torch.ops import grand_product as gp
+
+    fn = gp.z_columns_plain if plain else gp.z_columns
+    out = fn(F, blinding, call[0], call[1], [gp.LookupColumns(*lk[:4], lk[6]) for lk in lookups],
+             [[gp.Chunk(c[0], c[1], c[5], c[6]) for c in chunks] for chunks in circuits],
+             next((c[2] for chunks in circuits for c in chunks), None), inits)
+    if not joined:
+        return out
+    lzs, czs, lasts = out
+    return torch.cat([t.reshape(-1, 16) for t in [*lzs, *(z for zs in czs for z in zs),
+                                                  *(t for ts in lasts for t in ts)]])
+
+
 def grand_product_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17),
                        blinding: int = 5):
-    """Kernel G against its plain versions, as values mod p with outputs in
+    """Kernel G against its plain version, as values mod p with outputs in
     [0, 2p), on each modulus at each of `sizes`, each call of the kernel
-    under no_sync: a lookup's z column with a zero and a p denominator in
-    rows 1 and 2, and six permutation chunks of 1-6 columns chained by
-    last_z (each chunk's init the kernel's last_z of the one before), the
-    last with a zero and a p denominator in rows 1 and 2; at 2^14 + 3 the
-    lookup and a chunk of 2 columns also after replays of a CUDA graph and
-    on two streams at once. Then each timed on Fp at each of `timed`: the
-    lookup, a chunk of 2 columns (BenchCircuit's) and, at the first, of 6
+    under no_sync and two device kernels: a lookup's z column alone; six
+    permutation chunks of 1-6 columns chained by last_z in one call (the
+    first from an init); BenchCircuit's call, a lookup and a chunk of 2
+    columns. Zero and p denominators sit in row u = n - blinding - 1 and
+    the last blinding row (the lone lookup, the first chunk), in the first
+    and the last row (BenchCircuit's lookup) and in the middle and row u
+    (BenchCircuit's chunk, the sixth chunk). At 2^14 + 3 BenchCircuit's call
+    also after replays of a CUDA graph and on two streams at once. At the
+    first size, two calls that split into two launches each, a chain of
+    chunks going on across the split: three circuits of six chunks of 1-6
+    columns and two lookups (more than MAX_SLOTS columns' pointers), and
+    one circuit of MAX_Z + 1 chunks of one column. Then each timed on Fp at
+    each of `timed`: BenchCircuit's call (the kernels line's row), the
+    lookup alone, a chunk of 2 columns and, at the first, of 6
     (Sinsemilla's)."""
     from halo2_tpu_torch import fields
     from halo2_tpu_torch.ops import field_ew, grand_product as gp, polyeval, scan
@@ -1263,79 +1296,120 @@ def grand_product_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), 
 
     rng = np.random.default_rng(seed)
     checks, replays = [], []
+
+    def kernels_of(fn, what, launches=1):  # fn() under no_sync, its launches checked
+        before = gp.LAUNCHES["grand_product"]
+        with no_sync(dev):
+            out = fn()
+        require(gp.LAUNCHES["grand_product"] - before == launches * gp.KERNELS_PER_CALL,
+                f"{what}: not {launches * gp.KERNELS_PER_CALL} device kernels")
+        return out
+
     with counts_kept(gp, scan, field_ew, polyeval):
         for name in MODULI:
             F = getattr(fields, name)
             p, ctx = F.MODULUS, FieldCtx(F)
             for n in sizes:
-                lk = grand_inputs(rng, F, dev, n, edge_rows=(1, 2), blinding=blinding)
-                before = gp.LAUNCHES["grand_product"]
-                with no_sync(dev):
-                    got = gp.lookup_z(F, blinding, *lk)
-                require(gp.LAUNCHES["grand_product"] - before == gp.KERNELS_PER_CALL,
-                        f"lookup_z {name} n={n}: not {gp.KERNELS_PER_CALL} device kernels")
+                u = n - blinding - 1
+                lk = grand_inputs(rng, F, dev, n, edge_rows=(u, n - 1), blinding=blinding)
+                call = (lk[4], lk[5], int(rng.integers(2, 1 << 62)) % p)
+                got = kernels_of(lambda: gp.lookup_z(F, blinding, *lk), f"lookup_z {name} n={n}")
                 want = gp.lookup_z_plain(F, blinding, *lk)
                 require(values_equal(got, want, ctx), f"lookup_z {name} n={n}: kernel != plain")
-                require(ctx.decode_ints(got[2:4]) == [0, 0], f"lookup_z {name} n={n}: z after a zero is not 0")
+                require(0 not in ctx.decode_ints(got[:u + 1]), f"lookup_z {name} n={n}: a zero at row u or after")
                 checks.append(f"{name}:{n}:lookup")
+                chunks = [grand_inputs(rng, F, dev, n, c, {1: (u, n - 1), 6: (n // 2, u)}.get(c, ()), blinding, call)
+                          for c in range(1, 7)]
+                init = lazy_rows(rng, p, 1)[0].to(dev)
+                got = kernels_of(lambda: grand_call(F, blinding, call, [], [chunks], [init]),
+                                 f"six chunks {name} n={n}")
+                want = grand_call(F, blinding, call, [], [chunks], [init], plain=True)
+                require(values_equal(got, want, ctx), f"six chunks {name} n={n}: kernel != plain")
+                require(ctx.decode_ints(got[5 * n + n // 2 + 1:5 * n + n // 2 + 3]) == [0, 0],
+                        f"six chunks {name} n={n}: z after a zero is not 0")
+                checks.append(f"{name}:{n}:chunks:1-6")
+                bench = ([grand_inputs(rng, F, dev, n, 0, (0, n - 1), blinding, call)],
+                         [[grand_inputs(rng, F, dev, n, 2, (n // 2, u), blinding, call)]])
+                got = kernels_of(lambda: grand_call(F, blinding, call, *bench), f"BenchCircuit's call {name} n={n}")
+                want = grand_call(F, blinding, call, *bench, plain=True)
+                require(values_equal(got, want, ctx), f"BenchCircuit's call {name} n={n}: kernel != plain")
+                require(ctx.decode_ints(got[1:3]) == [0, 0], f"BenchCircuit's call {name} n={n}: z after a zero")
+                checks.append(f"{name}:{n}:bench")
                 if n == sizes[1]:
-                    require(replay_equal(lambda: gp.lookup_z(F, blinding, *lk), want, ctx),
-                            f"lookup_z {name} n={n}: a CUDA graph's replay != plain")
+                    require(replay_equal(lambda: grand_call(F, blinding, call, *bench), want, ctx),
+                            f"BenchCircuit's call {name} n={n}: a CUDA graph's replay != plain")
                     require(all(values_equal(out, want, ctx) for out in two_streams(
-                        lambda: gp.lookup_z(F, blinding, *lk))), f"lookup_z {name} n={n}: two streams != plain")
-                    replays.append(f"{name}:{n}:lookup")
-                init = plain_init = None
-                for ncols in range(1, 7):
-                    case = grand_inputs(rng, F, dev, n, ncols, (1, 2) if ncols == 6 else (), blinding)
-                    with no_sync(dev):
-                        z, last_z = gp.perm_z(F, blinding, *case[:6], init, case[6])
-                    wz, wlast = gp.perm_z_plain(F, blinding, *case[:6], plain_init, case[6])
-                    require(values_equal(z, wz, ctx) and values_equal(last_z, wlast, ctx),
-                            f"perm_z {name} n={n} ncols={ncols}: kernel != plain")
-                    checks.append(f"{name}:{n}:perm:{ncols}")
-                    if n == sizes[1] and ncols == 2:
-                        require(replay_equal(lambda: gp.perm_z(F, blinding, *case[:6], init, case[6])[0], wz, ctx),
-                                f"perm_z {name} n={n}: a CUDA graph's replay != plain")
-                        require(all(values_equal(out, wz, ctx) for out in two_streams(
-                            lambda: gp.perm_z(F, blinding, *case[:6], init, case[6])[0])),
-                                f"perm_z {name} n={n}: two streams != plain")
-                        replays.append(f"{name}:{n}:perm:2")
-                    init, plain_init = last_z, wlast
-                require(ctx.decode_ints(z[2:4]) == [0, 0], f"perm_z {name} n={n}: z after a zero is not 0")
+                        lambda: grand_call(F, blinding, call, *bench))), f"BenchCircuit's call {name} n={n}: two streams")
+                    replays.append(f"{name}:{n}:bench")
+                if n == sizes[0]:  # calls of two launches, a chain across the split
+                    edges = {(0, 5): (n // 2, u), (2, 2): (u, n - 1), (2, 3): (u, n - 1)}
+                    wide = [[grand_inputs(rng, F, dev, n, c + 1, edges.get((i, c), ()), blinding, call)
+                             for c in range(6)] for i in range(3)]
+                    narrow = [[grand_inputs(rng, F, dev, n, 1, (), blinding, call) for _ in range(gp.MAX_Z + 1)]]
+                    inits = [lazy_rows(rng, p, 1)[0].to(dev), None, lazy_rows(rng, p, 1)[0].to(dev)]
+                    for what, lookups, circuits, ins in (("wide", [lk, bench[0][0]], wide, inits),
+                                                         ("narrow", [], narrow, inits[:1])):
+                        got = kernels_of(lambda: grand_call(F, blinding, call, lookups, circuits, ins),
+                                         f"{what} split call {name} n={n}", launches=2)
+                        want = grand_call(F, blinding, call, lookups, circuits, ins, plain=True)
+                        require(values_equal(got, want, ctx), f"{what} split call {name} n={n}: kernel != plain")
+                        checks.append(f"{name}:{n}:split:{what}")
         F = fields.Fp
         p, ctx = F.MODULUS, FieldCtx(F)
         timing = {}
+
+        def chunk_den(case):  # a chunk's denominators, as kernel A forms them
+            den = None
+            for j in range(len(case[0])):
+                t = add_mod(add_mod(case[0][j], mont_mul(case[1][j], ctx.const(case[3], dev), ctx), ctx),
+                            ctx.const(case[4], dev), ctx)
+                den = t if den is None else mont_mul(den, t, ctx)
+            return den
+
         for n in timed:
             shape = f"n=2^{n.bit_length() - 1} (Fp)"
             suffix = "" if n == timed[0] else f"_2^{n.bit_length() - 1}"
+            u = n - blinding - 1
             lk = grand_inputs(rng, F, dev, n, blinding=blinding)
             beta_c, gamma_c = ctx.const(lk[4], dev), ctx.const(lk[5], dev)
-            batches = inverse_batches(mont_mul(add_mod(lk[2], beta_c, ctx), add_mod(lk[3], gamma_c, ctx), ctx), ctx)
-            # four columns read and z written; a row's denominator, numerator,
-            # its share of Montgomery's trick (3), its fraction and its prefix
+            lk_batches = inverse_batches(mont_mul(add_mod(lk[2][:u], beta_c, ctx), add_mod(lk[3][:u], gamma_c, ctx),
+                                                  ctx), ctx)
+            call = (lk[4], lk[5], int(rng.integers(2, 1 << 62)) % p)
+            cases = {c: grand_inputs(rng, F, dev, n, c, blinding=blinding, shared=call)
+                     for c in ((2, 6) if n == timed[0] else (2,))}
+            batches = {c: inverse_batches(chunk_den(case)[:u], ctx) for c, case in cases.items()}
+            # a lookup: four columns read and z written; a row's denominator
+            # and numerator, and its four products of the two scans: the
+            # prefixes P and Q, the suffix of the denominators' inverse and
+            # z. A chunk of c columns: c columns, c sigma columns and omega^i
+            # read, z written; a row's 2c - 1 products of each product and
+            # its four. Each column's inverse of its total (the rows before
+            # u) besides.
+            lk_bytes, lk_products = 64 * (5 * n + blinding), 6 * n
+
+            def chunk_bytes(c):
+                return 64 * ((2 * c + 2) * n + blinding + 2)
+
+            timing["z_columns" + suffix] = kernel_row(
+                lambda: grand_call(F, blinding, call, [lk], [[cases[2]]], joined=False),
+                lambda: grand_call(F, blinding, call, [lk], [[cases[2]]], plain=True, joined=False),
+                lk_bytes + chunk_bytes(2), lk_products + 10 * n, p,
+                shape + f", a lookup and a chunk of 2 columns (BenchCircuit's call), inverses {lk_batches} and "
+                f"{batches[2]} batches", extra_s=inverse_s(p, lk_batches) + inverse_s(p, batches[2]))
             timing["lookup_z" + suffix] = kernel_row(
-                lambda lk=lk: gp.lookup_z(F, blinding, *lk), lambda lk=lk: gp.lookup_z_plain(F, blinding, *lk),
-                64 * (5 * n + blinding), 7 * n, p, shape + f", inverse {batches} batches",
-                extra_s=inverse_s(p, batches))
-            for c in (2, 6) if n == timed[0] else (2,):
-                case = grand_inputs(rng, F, dev, n, c, blinding=blinding)
-                init = lazy_rows(rng, p, 1).to(dev)[0]
-                den = None
-                for j in range(c):
-                    t = add_mod(add_mod(case[0][j], mont_mul(case[1][j], ctx.const(case[3], dev), ctx), ctx),
-                                ctx.const(case[4], dev), ctx)
-                    den = t if den is None else mont_mul(den, t, ctx)
-                batches = inverse_batches(den, ctx)
-                # c columns, c sigma columns and omega^i read, z written; a
-                # row's 2c - 1 products of each product, 3 of Montgomery's
-                # trick, its fraction and its prefix
+                lambda: gp.lookup_z(F, blinding, *lk), lambda: gp.lookup_z_plain(F, blinding, *lk),
+                lk_bytes, lk_products, p, shape + f", inverse {lk_batches} batches",
+                extra_s=inverse_s(p, lk_batches))
+            init = lazy_rows(rng, p, 1).to(dev)[0]
+            for c, case in cases.items():
                 timing[f"perm_z_{c}" + suffix] = kernel_row(
-                    lambda case=case, init=init: gp.perm_z(F, blinding, *case[:6], init, case[6])[0],
-                    lambda case=case, init=init: gp.perm_z_plain(F, blinding, *case[:6], init, case[6])[0],
-                    64 * ((2 * c + 2) * n + blinding + 2), (4 * c + 3) * n, p,
-                    shape + f", {c} columns, inverse {batches} batches", extra_s=inverse_s(p, batches))
+                    lambda case=case: gp.perm_z(F, blinding, *case[:6], init, case[6])[0],
+                    lambda case=case: gp.perm_z_plain(F, blinding, *case[:6], init, case[6])[0],
+                    chunk_bytes(c), (4 * c + 2) * n, p, shape + f", {c} columns, inverse {batches[c]} batches",
+                    extra_s=inverse_s(p, batches[c]))
     return dict(checks=len(checks), replays=len(replays), sizes=list(sizes), moduli=list(MODULI),
-                blinding=blinding, exact_values=True, no_sync=True, two_streams=True, timing=timing)
+                blinding=blinding, exact_values=True, no_sync=True, two_streams=True,
+                kernels_per_call=gp.KERNELS_PER_CALL, timing=timing)
 
 
 def horner_path(dev, seed: int, sizes=(1 << 11, (1 << 14) + 3, 1 << 17), timed=(1 << 14, 1 << 17)):
@@ -2299,8 +2373,8 @@ def main() -> int:
             ("ipa_round", "ipa_round.cu", "halo2_tpu/poly/ipa/__init__.py:356", ipa_res["timing"]["round"],
              {key: row for key, row in ipa_res["timing"].items() if key != "round"}),
             ("grand_product", "grand_product.cu", "halo2_tpu/plonk/lookup_prover.py:147",
-             grand_res["timing"]["lookup_z"],
-             {key: row for key, row in grand_res["timing"].items() if key != "lookup_z"}),
+             grand_res["timing"]["z_columns"],
+             {key: row for key, row in grand_res["timing"].items() if key != "z_columns"}),
             ("horner", "horner.cu", "halo2_tpu/ops/polyeval.py:122", horner_res["timing"]["horner"],
              {key: row for key, row in horner_res["timing"].items() if key != "horner"})):
         errs[name] = 0  # values mod p equal the plain version's
@@ -2323,11 +2397,9 @@ def main() -> int:
     warm_s = time.perf_counter() - t0
     warm_launches = read_launches()
     require(sum(a_sites.values()) == warm_launches["field_ew"], "kernel A's launches by site do not add up")
-    z_columns = len(vk.cs.lookups) + -(-len(vk.cs.permutation.columns) // (vk.cs_degree - 2))
-    require(warm_launches["grand_product"] == grand_product.KERNELS_PER_CALL * z_columns
-            and warm_launches["horner"] == 1,
-            f"warm k=14 proof: kernel G {warm_launches['grand_product']} device kernels for {z_columns} z "
-            f"columns, kernel H {warm_launches['horner']} launches")
+    require(warm_launches["grand_product"] == grand_product.KERNELS_PER_CALL and warm_launches["horner"] == 1,
+            f"warm k=14 proof: kernel G {warm_launches['grand_product']} device kernels for its z columns, not "
+            f"{grand_product.KERNELS_PER_CALL}; kernel H {warm_launches['horner']} launches")
     require(not [site for site in a_sites if site.startswith("ops/grand_product.py")
                  or "horner_fold_mont" in site], f"warm k=14 proof: a plain z column or fold on the card: {a_sites}")
     emit({"phase": "warm_k14", "prove_s": warm_s, "prove_spans": get_records(),
@@ -3004,11 +3076,13 @@ def main() -> int:
                          ("sinsemilla11", 11), ("sha256_k17", 17), ("mesh14", 14), ("kzg14", -1)):
         require(proof_launches[path]["ipa_round"] == k_path + 1,
                 f"kernel F launched {proof_launches[path]['ipa_round']} times in a {path} proof, not {k_path + 1}")
-    # kernel G: three device kernels a z column; kernel H: one launch a proof
+    # kernel G: one call of two device kernels for every z column of a
+    # proof; kernel H: one launch a proof
     for path, counts in proof_launches.items():
         require(counts["horner"] == 1, f"kernel H launched {counts['horner']} times in a {path} proof, not once")
-        require(counts["grand_product"] > 0 and counts["grand_product"] % grand_product.KERNELS_PER_CALL == 0,
-                f"kernel G made {counts['grand_product']} device kernels in a {path} proof, not 3 a z column")
+        require(counts["grand_product"] == grand_product.KERNELS_PER_CALL,
+                f"kernel G made {counts['grand_product']} device kernels in a {path} proof, not "
+                f"{grand_product.KERNELS_PER_CALL}")
     emit({"phase": "launches_per_proof", "card": smi,
           "paths": {path: {name: counts[name] for name in (*field_ew.OPS, "field_ew", *ew_kernels[1:],
                                                            *jit_kernels)}

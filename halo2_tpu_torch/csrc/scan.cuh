@@ -1,5 +1,6 @@
 // Single-pass scans with a decoupled look-back, shared by kernel C
-// (csrc/scan.cu) and kernel E (csrc/polyeval.cu), and the row loads,
+// (csrc/scan.cu), kernel E (csrc/polyeval.cu) and kernel G
+// (csrc/grand_product.cu), and the row loads,
 // stores, warp sums and last-block completion of kernels D and F.
 //
 // A scan is one launch over tiles of kTileRows rows (Merrill and Garland,
@@ -63,7 +64,8 @@ struct Lookback {
   uint32_t* values;
 };
 
-// the 32-bit words of a state: kernels C and E both scan 8-word states
+// the 32-bit words of a state: kernels C and E scan 8-word states (the
+// scratch below); kernel G's forward scan 16-word pairs (its own scratch)
 constexpr int kStateWords = 8;
 
 // Host side: the row tiles of n rows; the 32-bit words of one scan's
@@ -280,7 +282,7 @@ __device__ __forceinline__ void scan_tile(const Op& op, Rows& rows, const Lookba
                                           long long n, long long tiles) {
   using S = typename Op::S;
   using Pw = typename Op::Pw;
-  static_assert(S::kWords == kStateWords, "the scratch holds 8-word states");
+  static_assert(S::kWords % 4 == 0, "a state is stored 16 bytes at a time");
   __shared__ S sh[kScanWarps];
   __shared__ S carry_sh;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

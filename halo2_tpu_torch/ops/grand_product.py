@@ -2,24 +2,28 @@
 
 Counterpart of the JAX package's jitted z columns,
 `halo2_tpu/plonk/lookup_prover.py` `_lookup_z_fn` and
-`halo2_tpu/plonk/permutation_prover.py` `_perm_z_fn`. `lookup_z` and
-`perm_z` run kernel G (`csrc/grand_product.cu`) for CUDA tensors and their
-plain versions (`lookup_z_plain`, `perm_z_plain`) for CPU tensors, and
-raise for any other device.
+`halo2_tpu/plonk/permutation_prover.py` `_perm_z_fn`. `z_columns` computes
+every z column of a `create_proof` call, each circuit's permutation chunks
+(chained by last_z) and the lookups, by kernel G (`csrc/grand_product.cu`)
+for CUDA tensors and by its plain version (`z_columns_plain`: `lookup_z_plain`
+and `perm_z_plain` in a loop) for CPU tensors, and raises for any other
+device. `lookup_z` and `perm_z` are calls of it with one column.
 
-Kernel G is three launches of kernel C's single-pass look-back scan
-(`csrc/scan.cuh`) and one memset a z column: the rows' denominators formed
-from the columns and their prefix products; the same scan from the last row
-back, from the inverse of the total (a binary GCD on the card), which
-leaves each row's fraction num_i / den_i with its numerator formed in the
-row; and the prefix products of the fractions from `init`, written as the
-z rows, the random rows and `last_z`. The columns, the sigma columns, the
-powers of omega, the random rows and the outputs are pointers in the
-launches' parameters (`GrandParams`), beta, gamma and the chunk's
-beta delta^(base + j) values there, so nothing is stacked, concatenated or
-copied, and nothing is read back: `last_z` stays on the card as the next
-chunk's `init`. `pack` is the launch's preparation in Python, so that the
-CPU tests reach it.
+Kernel G is two launches of kernel C's single-pass look-back scan
+(`csrc/scan.cuh`) over every column's tiles and one memset: the prefix
+products of each row's (numerator, denominator) pair with the terms formed
+in the rows (a zero denominator counts as one, its numerator as zero); then
+the same scan of the denominators from the last row back, whose descriptor
+0 is a column's init over its denominators' total (inverted by a binary
+GCD on the card, the chunks chained there), leaving z. The columns, the
+sigma columns, the powers of omega, the random rows and the outputs are
+pointers in the launches' parameters (`GrandParams`), beta, gamma and each
+chunk's beta delta^(base + j) values there, so nothing is stacked,
+concatenated or copied, and nothing is read back: `last_z` stays on the
+card. A call of more than MAX_Z columns or MAX_SLOTS columns' pointers is
+split into several launches (`launch_groups`), a chunk that starts one
+taking the one before's last_z as its init. `pack` is a launch's
+preparation in Python, so that the CPU tests reach it.
 
 The plain versions are the JAX programs' order of operations in torch:
 kernel A's products and sums (`ops/field.py`) around `ops/scan.py`'s batch
@@ -30,7 +34,7 @@ inversion and exclusive prefix product. The kernel's outputs lie in
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Type
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Type
 
 import torch
 
@@ -39,9 +43,11 @@ from . import _build
 from . import scan as scan_ops
 from .field import NLIMBS, FieldCtx, add_mod, mont_mul
 
-MAX_COLS = 32  # csrc/grand_product.cu kMaxCols: columns of a permutation chunk
-KINDS = ("lookup", "permutation")  # GrandParams.kind 0, 1
-KERNELS_PER_CALL = 3  # device kernels a z column
+MAX_Z = 16  # csrc/grand_product.cu kMaxZ: z columns a launch
+MAX_SLOTS = 48  # kMaxSlots: their columns, a lookup's four and a chunk's ncols
+KINDS = ("lookup", "permutation")  # ZColumn.kind 0, 1
+KERNELS_PER_CALL = 2  # device kernels a launch (one memset besides)
+PAIR_WORDS = 16  # the forward scan's state, (P, Q); the backward scan's is 8 words
 LAUNCHES = {"grand_product": 0}  # kernel G's device kernels
 
 _P = ctypes.c_void_p
@@ -49,23 +55,58 @@ _W8 = ctypes.c_uint32 * 8
 _SIG = {"grand_product": (_P, ctypes.c_longlong, _P), "grand_tile_rows": (), "grand_params_size": ()}
 
 
-class Lookback(ctypes.Structure):
-    """Host mirror of `Lookback` in csrc/scan.cuh (filled in on the C side)."""
+class LookupColumns(NamedTuple):
+    """A lookup's z column inputs: the compressed input and table, their
+    permutations ((n, 16) Montgomery limbs each) and its random rows."""
 
-    _fields_ = [("words", _P), ("values", _P)]
+    ci: torch.Tensor
+    ct: torch.Tensor
+    pi: torch.Tensor
+    pt: torch.Tensor
+    rand_rows: torch.Tensor
+
+
+class Chunk(NamedTuple):
+    """A permutation chunk's z column inputs: its columns and sigma columns
+    ((n, 16) each), beta delta^(base + j) mod p for each column (host
+    values) and its random rows."""
+
+    cols: Sequence[torch.Tensor]
+    sigmas: Sequence[torch.Tensor]
+    dpows: Sequence[int]
+    rand_rows: torch.Tensor
+
+
+class Column(NamedTuple):
+    """One z column of a launch: a lookup's four columns or a chunk's, its
+    init (16,) or None (one), and whether its init is the column before's
+    last_z instead."""
+
+    kind: str
+    cols: Sequence[torch.Tensor]
+    rand_rows: torch.Tensor
+    sigmas: Sequence[torch.Tensor] = ()
+    dpows: Sequence[int] = ()
+    init: Optional[torch.Tensor] = None
+    chain: bool = False
+
+
+class ZColumn(ctypes.Structure):
+    """Host mirror of `ZColumn` in csrc/grand_product.cu."""
+
+    _fields_ = [("rand", _P), ("init", _P), ("out", _P), ("last_z", _P), ("kind", ctypes.c_int),
+                ("ncols", ctypes.c_int), ("first", ctypes.c_int), ("chain", ctypes.c_int)]
 
 
 class GrandParams(ctypes.Structure):
     """Host mirror of `GrandParams` in csrc/grand_product.cu (the launches'
-    parameters; the C entry point fills in `tiles` and `lb`)."""
+    parameters; the C entry point fills in `tiles`)."""
 
     _fields_ = [
-        ("cols", _P * MAX_COLS), ("sigmas", _P * MAX_COLS), ("omega", _P), ("rand", _P), ("init", _P),
-        ("out", _P), ("last_z", _P), ("den", _P), ("scratch", _P),
-        ("n", ctypes.c_longlong), ("tiles", ctypes.c_longlong),
-        ("kind", ctypes.c_int), ("ncols", ctypes.c_int), ("blinding", ctypes.c_int),
-        ("beta", _W8), ("gamma", _W8), ("dpows", _W8 * MAX_COLS), ("r3", _W8),
-        ("k", _build.FieldConsts), ("lb", Lookback * 3),
+        ("cols", _P * MAX_SLOTS), ("sigmas", _P * MAX_SLOTS), ("omega", _P), ("scratch", _P),
+        ("z", ZColumn * MAX_Z), ("n", ctypes.c_longlong), ("tiles", ctypes.c_longlong),
+        ("nz", ctypes.c_int), ("blinding", ctypes.c_int), ("beta", _W8), ("gamma", _W8),
+        ("dpows", _W8 * MAX_SLOTS), ("r3", _W8), ("k", _build.FieldConsts),
     ]
 
 
@@ -80,86 +121,186 @@ def _lib():
     return lib
 
 
-def scratch_words(n: int) -> int:
-    """32-bit words of a call's scratch: the three scans' look-back words
-    (scan.scratch_words), then a column of n rows for the denominators."""
-    return scan_ops.scratch_words(n, KERNELS_PER_CALL) + n * NLIMBS
+def _flag_words(tiles: int, nz: int) -> int:
+    return -(-(1 + nz * (tiles + 1)) // 4) * 4
+
+
+def scratch_words(n: int, blinding: int, nz: int) -> int:
+    """32-bit words of a launch's scratch over nz columns, each scanning its
+    U = n - blinding - 1 rows in T tiles (csrc/grand_product.cu
+    grand_scratch_words): each launch's ticket counter and T + 1 flags a
+    column (rounded up to 16 bytes), then T + 1 descriptors a column of
+    two states each, 16 words in the forward launch and 8 in the backward
+    one, then U den' rows of 8 words a column."""
+    rows = n - blinding - 1
+    tiles = scan_ops.scan_tiles(rows)
+    return 2 * _flag_words(tiles, nz) + nz * (tiles + 1) * 2 * (PAIR_WORDS + 8) + nz * rows * 8
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def pack(kind: str, ctx: FieldCtx, blinding: int, cols: Sequence[torch.Tensor], beta: int, gamma: int, *,
-         out: torch.Tensor, scratch: torch.Tensor, rand_rows: torch.Tensor, sigmas: Sequence[torch.Tensor] = (),
-         omega: Optional[torch.Tensor] = None, dpows: Sequence[int] = (), init: Optional[torch.Tensor] = None,
-         last_z: Optional[torch.Tensor] = None) -> GrandParams:
-    """The parameters of one z column's launches, every tensor checked: the
-    columns (a lookup's a, s, a', s'; a chunk's columns, each with its
-    sigma column and dpows value), omega (n, 16), rand_rows (blinding, 16),
-    init and last_z (16,), out (n, 16) and scratch (scratch_words(n),)
-    contiguous int32 on one device, 16-byte aligned."""
-    if kind not in KINDS:
-        raise ValueError(f"grand_product: kind {kind!r}, not one of {KINDS}")
-    n = out.shape[0]
+def pack(ctx: FieldCtx, blinding: int, columns: Sequence[Column], beta: int, gamma: int, *,
+         out: torch.Tensor, last_z: torch.Tensor, scratch: torch.Tensor,
+         omega: Optional[torch.Tensor] = None) -> GrandParams:
+    """The parameters of one launch over `columns` (at most MAX_Z, with at
+    most MAX_SLOTS columns in all), every tensor checked: each column's
+    columns (a lookup's a, s, a', s'; a chunk's columns, each with its sigma
+    column and dpows value), rand_rows (blinding, 16), init (16,); omega
+    (n, 16) where a chunk is; out (len(columns), n, 16), last_z
+    (len(columns), 16) (a chunk's row) and scratch
+    (scratch_words(n, blinding, len(columns)),), all contiguous int32 on one
+    device, 16-byte aligned."""
+    nz = len(columns)
+    if not 1 <= nz <= MAX_Z:
+        raise ValueError(f"grand_product: 1-{MAX_Z} z columns a launch, got {nz}")
+    slots = sum(len(c.cols) for c in columns)
+    if slots > MAX_SLOTS:
+        raise ValueError(f"grand_product: at most {MAX_SLOTS} columns' pointers a launch, got {slots}")
+    for i, c in enumerate(columns):
+        if c.kind not in KINDS:
+            raise ValueError(f"grand_product: kind {c.kind!r}, not one of {KINDS}")
+        if c.kind == "lookup" and (len(c.cols) != 4 or c.sigmas or c.dpows or c.init is not None or c.chain):
+            raise ValueError("grand_product: a lookup takes four columns and no sigma, dpows, init or chain")
+        if c.kind == "permutation" and not (1 <= len(c.cols) and len(c.sigmas) == len(c.cols) == len(c.dpows)
+                                            and omega is not None):
+            raise ValueError(f"grand_product: a permutation chunk takes columns, a sigma column and a dpows "
+                             f"value each, and omega; got {len(c.cols)}, {len(c.sigmas)}, {len(c.dpows)}")
+        if c.chain and not (i > 0 and columns[i - 1].kind == "permutation" and c.init is None):
+            raise ValueError(f"grand_product: column {i} chains to no chunk before it")
+    n = columns[0].cols[0].shape[0]
     dev = out.device
-    ncols = len(cols)
-    if kind == "lookup" and (ncols != 4 or sigmas or dpows or omega is not None):
-        raise ValueError("grand_product: a lookup takes four columns and no sigma, dpows or omega")
-    if kind == "permutation" and not (1 <= ncols <= MAX_COLS and len(sigmas) == ncols == len(dpows)
-                                      and omega is not None):
-        raise ValueError(f"grand_product: a permutation chunk takes 1-{MAX_COLS} columns, a sigma column "
-                         f"and a dpows value each, and omega; got {ncols}, {len(sigmas)}, {len(dpows)}")
     if not 0 <= blinding < n:
         raise ValueError(f"grand_product: {blinding} blinding rows of {n}")
-    checks = [(out, (n, NLIMBS), "out"), (scratch, (scratch_words(n),), "scratch"),
-              (rand_rows, (blinding, NLIMBS), "rand_rows")]
-    checks += [(c, (n, NLIMBS), f"column {j}") for j, c in enumerate(cols)]
-    checks += [(s, (n, NLIMBS), f"sigma {j}") for j, s in enumerate(sigmas)]
+    checks = [(out, (nz, n, NLIMBS), "out"), (last_z, (nz, NLIMBS), "last_z"),
+              (scratch, (scratch_words(n, blinding, nz),), "scratch")]
+    for i, c in enumerate(columns):
+        checks += [(t, (n, NLIMBS), f"column {i}.{j}") for j, t in enumerate(c.cols)]
+        checks += [(t, (n, NLIMBS), f"sigma {i}.{j}") for j, t in enumerate(c.sigmas)]
+        checks += [(c.rand_rows, (blinding, NLIMBS), f"rand_rows {i}")]
+        checks += [(t, (NLIMBS,), f"init {i}") for t in (c.init,) if t is not None]
     checks += [(t, (n, NLIMBS), "omega") for t in (omega,) if t is not None]
-    checks += [(t, (NLIMBS,), name) for t, name in ((init, "init"), (last_z, "last_z")) if t is not None]
     for t, shape, name in checks:
         _build.check_tensor(t, shape, name, dev, align=16)
     p = ctx.p_int
-    params = GrandParams(omega=None if omega is None else omega.data_ptr(),
-                         rand=rand_rows.data_ptr() if blinding else None,
-                         init=None if init is None else init.data_ptr(), out=out.data_ptr(),
-                         last_z=None if last_z is None else last_z.data_ptr(),
-                         den=scratch.data_ptr() + 4 * scan_ops.scratch_words(n, KERNELS_PER_CALL),
-                         scratch=scratch.data_ptr(), n=n, kind=KINDS.index(kind), ncols=ncols,
-                         blinding=blinding, beta=_build.mont_words(p, beta), gamma=_build.mont_words(p, gamma),
-                         r3=scan_ops.r3_words(p), k=_build.field_consts(p))
-    for j, c in enumerate(cols):
-        params.cols[j] = c.data_ptr()
-    for j, s in enumerate(sigmas):
-        params.sigmas[j] = s.data_ptr()
-    for j, d in enumerate(dpows):
-        params.dpows[j] = _build.mont_words(p, d)
+    params = GrandParams(omega=None if omega is None else omega.data_ptr(), scratch=scratch.data_ptr(), n=n,
+                         nz=nz, blinding=blinding, beta=_build.mont_words(p, beta),
+                         gamma=_build.mont_words(p, gamma), r3=scan_ops.r3_words(p), k=_build.field_consts(p))
+    first = 0
+    for i, c in enumerate(columns):
+        z = params.z[i]
+        z.rand = c.rand_rows.data_ptr() if blinding else None
+        z.init = None if c.init is None else c.init.data_ptr()
+        z.out = out[i].data_ptr()
+        z.last_z = last_z[i].data_ptr() if c.kind == "permutation" else None
+        z.kind, z.ncols, z.first, z.chain = KINDS.index(c.kind), len(c.cols), first, int(c.chain)
+        for j, t in enumerate(c.cols):
+            params.cols[first + j] = t.data_ptr()
+        for j, (s, d) in enumerate(zip(c.sigmas, c.dpows)):
+            params.sigmas[first + j] = s.data_ptr()
+            params.dpows[first + j] = _build.mont_words(p, d)
+        first += len(c.cols)
     return params
 
 
-def launch(kind: str, ctx: FieldCtx, blinding: int, cols: Sequence[torch.Tensor], beta: int, gamma: int,
-           rand_rows: torch.Tensor, sigmas: Sequence[torch.Tensor] = (), omega: Optional[torch.Tensor] = None,
-           dpows: Sequence[int] = (), init: Optional[torch.Tensor] = None):
-    """Kernel G on CUDA tensors: (z (n, 16), last_z (16,), or None for a
-    lookup). Three device kernels and one memset; nothing is read back."""
-    cols = [_rows(c) for c in cols]
-    sigmas = [_rows(s) for s in sigmas]
+def launch_groups(columns: Sequence[Column]) -> List[List[Column]]:
+    """`columns` cut, in order, into launches of at most MAX_Z columns and
+    MAX_SLOTS columns' pointers; a chained chunk that starts a launch is
+    left chained here, and `launch` gives it the last_z before it as its
+    init."""
+    groups: List[List[Column]] = []
+    slots = 0
+    for c in columns:
+        if len(c.cols) > MAX_SLOTS:
+            raise ValueError(f"grand_product: a z column of {len(c.cols)} columns, more than {MAX_SLOTS}")
+        if not groups or len(groups[-1]) == MAX_Z or slots + len(c.cols) > MAX_SLOTS:
+            groups.append([])
+            slots = 0
+        groups[-1].append(c)
+        slots += len(c.cols)
+    return groups
+
+
+def launch(ctx: FieldCtx, blinding: int, columns: Sequence[Column], beta: int, gamma: int,
+           omega: Optional[torch.Tensor] = None) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Kernel G on CUDA tensors: every column's (z (n, 16), last_z (16,)),
+    the latter only meaningful for a chunk. Two device kernels and one
+    memset a launch (one for up to MAX_Z columns); nothing is read back."""
+    columns = [c._replace(cols=[_rows(t) for t in c.cols], sigmas=[_rows(t) for t in c.sigmas],
+                          rand_rows=_rows(c.rand_rows), init=None if c.init is None else _rows(c.init).reshape(NLIMBS))
+               for c in columns]
     omega = None if omega is None else _rows(omega)
-    init = None if init is None else _rows(init).reshape(NLIMBS)
-    rand_rows = _rows(rand_rows)
-    dev = cols[0].device
-    n = cols[0].shape[0]
-    out = torch.empty((n, NLIMBS), dtype=torch.int32, device=dev)
-    last_z = torch.empty(NLIMBS, dtype=torch.int32, device=dev) if kind == "permutation" else None
-    scratch = torch.empty(scratch_words(n), dtype=torch.int32, device=dev)
-    params = pack(kind, ctx, blinding, cols, beta, gamma, out=out, scratch=scratch, rand_rows=rand_rows,
-                  sigmas=sigmas, omega=omega, dpows=dpows, init=init, last_z=last_z)
-    err = _lib().grand_product(ctypes.byref(params), scan_ops.scratch_words(n, KERNELS_PER_CALL),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, f"grand_product {kind}")
-    LAUNCHES["grand_product"] += KERNELS_PER_CALL
-    return out, last_z
+    dev = columns[0].cols[0].device
+    n = columns[0].cols[0].shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    zs: List[torch.Tensor] = []
+    lasts: List[torch.Tensor] = []
+    for group in launch_groups(columns):
+        if group[0].chain:  # its chain began in the launch before
+            group[0] = group[0]._replace(chain=False, init=lasts[-1])
+        out = torch.empty((len(group), n, NLIMBS), dtype=torch.int32, device=dev)
+        last_z = torch.empty((len(group), NLIMBS), dtype=torch.int32, device=dev)
+        words = scratch_words(n, blinding, len(group))
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        params = pack(ctx, blinding, group, beta, gamma, out=out, last_z=last_z, scratch=scratch, omega=omega)
+        _build.check(_lib().grand_product(ctypes.byref(params), words, stream), "grand_product")
+        LAUNCHES["grand_product"] += KERNELS_PER_CALL
+        zs += list(out)
+        lasts += list(last_z)
+    return zs, lasts
+
+
+def z_columns(field: Type[FieldElement], blinding: int, beta: int, gamma: int,
+              lookups: Sequence[LookupColumns] = (), circuits: Sequence[Sequence[Chunk]] = (),
+              omega_pw: Optional[torch.Tensor] = None, inits: Optional[Sequence[Optional[torch.Tensor]]] = None):
+    """Every z column of a proof: (the lookups' z, each circuit's chunks'
+    z, each circuit's chunks' last_z), all left on the device. Each
+    circuit's first chunk starts from its init ((16,), inits[i], or one
+    where that is None or inits is), each later chunk from the last_z of
+    the one before (permutation/prover.rs:44-160); omega_pw (n, 16) =
+    omega^i where a chunk is; beta, gamma host values. A lookup's z:
+    lookup_z; a chunk's: perm_z."""
+    first = next((t for t in [*(lk.ci for lk in lookups), *(ch.cols[0] for chunks in circuits for ch in chunks)]),
+                 None)
+    if first is None:
+        return [], [[] for _ in circuits], [[] for _ in circuits]
+    if not _build.on_card(first, "z_columns"):
+        return z_columns_plain(field, blinding, beta, gamma, lookups, circuits, omega_pw, inits)
+    columns = []
+    for i, chunks in enumerate(circuits):
+        for j, ch in enumerate(chunks):
+            columns.append(Column("permutation", ch.cols, ch.rand_rows, ch.sigmas, ch.dpows,
+                                  init=inits[i] if inits is not None and j == 0 else None, chain=j > 0))
+    columns += [Column("lookup", (lk.ci, lk.ct, lk.pi, lk.pt), lk.rand_rows) for lk in lookups]
+    zs, lasts = launch(FieldCtx(field), blinding, columns, beta, gamma, omega_pw)
+    chunk_zs, chunk_lasts, at = [], [], 0
+    for chunks in circuits:
+        chunk_zs.append(zs[at:at + len(chunks)])
+        chunk_lasts.append(lasts[at:at + len(chunks)])
+        at += len(chunks)
+    return zs[at:], chunk_zs, chunk_lasts
+
+
+def z_columns_plain(field: Type[FieldElement], blinding: int, beta: int, gamma: int,
+                    lookups: Sequence[LookupColumns] = (), circuits: Sequence[Sequence[Chunk]] = (),
+                    omega_pw: Optional[torch.Tensor] = None,
+                    inits: Optional[Sequence[Optional[torch.Tensor]]] = None):
+    """z_columns' plain version: lookup_z_plain for each lookup and
+    perm_z_plain for each chunk, each circuit's chunks chained by last_z."""
+    lookup_zs = [lookup_z_plain(field, blinding, *lk[:4], beta, gamma, lk.rand_rows) for lk in lookups]
+    chunk_zs, chunk_lasts = [], []
+    for i, chunks in enumerate(circuits):
+        init = inits[i] if inits is not None else None
+        zs, lasts = [], []
+        for ch in chunks:
+            z, init = perm_z_plain(field, blinding, ch.cols, ch.sigmas, omega_pw, beta, gamma, ch.dpows, init,
+                                   ch.rand_rows)
+            zs.append(z)
+            lasts.append(init)
+        chunk_zs.append(zs)
+        chunk_lasts.append(lasts)
+    return lookup_zs, chunk_zs, chunk_lasts
 
 
 def lookup_z(field: Type[FieldElement], blinding: int, ci: torch.Tensor, ct: torch.Tensor, pi: torch.Tensor,
@@ -168,10 +309,9 @@ def lookup_z(field: Type[FieldElement], blinding: int, ci: torch.Tensor, ct: tor
     z[0] = 1; z[i+1] = z[i] (a_i + beta)(s_i + gamma) /
     ((a'_i + beta)(s'_i + gamma)); rows [n - blinding, n) are rand_rows.
     ci, ct, pi, pt: the compressed input and table and their permutations,
-    (n, 16) Montgomery limbs; beta, gamma host values."""
-    if _build.on_card(ci, "lookup_z"):
-        return launch("lookup", FieldCtx(field), blinding, (ci, ct, pi, pt), beta, gamma, rand_rows)[0]
-    return lookup_z_plain(field, blinding, ci, ct, pi, pt, beta, gamma, rand_rows)
+    (n, 16) Montgomery limbs; beta, gamma host values. A z_columns call of
+    one lookup."""
+    return z_columns(field, blinding, beta, gamma, [LookupColumns(ci, ct, pi, pt, rand_rows)])[0][0]
 
 
 def lookup_z_plain(field: Type[FieldElement], blinding: int, ci: torch.Tensor, ct: torch.Tensor,
@@ -196,11 +336,11 @@ def perm_z(field: Type[FieldElement], blinding: int, cols: Sequence[torch.Tensor
     prod_j (v_j + beta sigma_j + gamma); rows [n - blinding, n) are
     rand_rows; last_z = z[n - blinding - 1]. cols, sigmas: the chunk's
     columns and sigma columns, each (n, 16); omega_pw (n, 16) = omega^i;
-    dpows: beta delta^(base + j) mod p, host values; init (16,) or None."""
-    if _build.on_card(omega_pw, "perm_z"):
-        return launch("permutation", FieldCtx(field), blinding, cols, beta, gamma, rand_rows, sigmas=sigmas,
-                      omega=omega_pw, dpows=dpows, init=init)
-    return perm_z_plain(field, blinding, cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows)
+    dpows: beta delta^(base + j) mod p, host values; init (16,) or None. A
+    z_columns call of one chunk."""
+    _, zs, lasts = z_columns(field, blinding, beta, gamma, circuits=[[Chunk(cols, sigmas, dpows, rand_rows)]],
+                             omega_pw=omega_pw, inits=[init])
+    return zs[0][0], lasts[0][0]
 
 
 def perm_z_plain(field: Type[FieldElement], blinding: int, cols: Sequence[torch.Tensor],

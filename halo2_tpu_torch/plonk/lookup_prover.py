@@ -9,10 +9,11 @@ Counterpart of `halo2_tpu/plonk/lookup_prover.py`: compression evaluates
 expression ASTs over device-resident Lagrange columns (`plonk/columns.py`),
 and the grand product z replaces the reference's per-row loops
 (`lookup/prover.rs:168-330`) as the JAX package's one jitted program
-(`_lookup_z_fn`) did: on the card it is kernel G (`ops/grand_product.py`,
-`csrc/grand_product.cu`: the rows' terms, the batch inversion, the prefix
-product and the blinding rows in three scan launches that read the four
-columns in place), on the CPU its plain version. The sort/count
+(`_lookup_z_fn`) did: on the card it is part of kernel G's one call for
+every z column of a proof (`ops/grand_product.py` `z_columns`, made by
+`plonk/prover.py` from each lookup's `product_inputs`: the rows' terms, the
+inversion, the prefix product and the blinding rows in two scan launches
+that read the four columns in place), on the CPU its plain version. The sort/count
 `permute_expression_pair` stays on the host (one readback of the two
 compressed columns).
 """
@@ -20,11 +21,11 @@ compressed columns).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
-from ..ops.grand_product import lookup_z
+from ..ops.grand_product import LookupColumns
 from ..ops.polyeval import batch_eval
 from ..poly import LAGRANGE, FVec, Polynomial, Rotation
 from ..poly.commitment import Blind, ProverQuery
@@ -136,21 +137,23 @@ def permute_expression_pair(pk, params, rng, input_vec: FVec, table_vec: FVec):
     return FVec.from_ints(F, permuted_input, dev), FVec.from_ints(F, permuted_table, dev)
 
 
-def commit_product(
-    permuted: PermutedLookup, pk, params, domain, beta: int, gamma: int, rng, transcript
-) -> CommittedLookup:
+def product_inputs(permuted: PermutedLookup, pk, params, rng) -> Tuple[LookupColumns, Blind]:
+    """The lookup's z column as kernel G's input, and its blind: its random
+    rows, then its blind, drawn from rng in the reference's order."""
     F = params.curve.SCALAR
     blinding = pk.vk.cs.blinding_factors()
-
     rand_rows = FVec.from_ints(F, [F.random(rng).v for _ in range(blinding)], params.device).vals
-    z = lookup_z(
-        F, blinding,
-        permuted.compressed_input.vals, permuted.compressed_table.vals,
-        permuted.permuted_input.vals, permuted.permuted_table.vals,
-        beta, gamma, rand_rows,
-    )
+    columns = LookupColumns(permuted.compressed_input.vals, permuted.compressed_table.vals,
+                            permuted.permuted_input.vals, permuted.permuted_table.vals, rand_rows)
+    return columns, Blind(F.random(rng).v)
 
-    product_blind = Blind(F.random(rng).v)
+
+def commit_product(
+    permuted: PermutedLookup, z: torch.Tensor, product_blind: Blind, params, domain, transcript
+) -> CommittedLookup:
+    """Commits the lookup's z column and writes the commitment to the
+    transcript."""
+    F = params.curve.SCALAR
     zv = FVec(F, z)
     (product_commitment,) = params.commit_many(
         [zv], [product_blind], lagrange=True, mont=True

@@ -16,6 +16,7 @@ import torch
 
 from ..frontend import Value
 from ..frontend.floor_planner import synthesize_circuit
+from ..ops.grand_product import z_columns
 from ..poly import LAGRANGE, FVec, Polynomial
 from ..poly.commitment import Blind, ProverQuery
 from . import lookup_prover, permutation_prover, vanishing
@@ -243,19 +244,33 @@ def create_proof(params, pk: ProvingKey, circuits: List, instances: List[List[Li
     # ---- permutations (prover.rs:467-486) ----
     beta = int(transcript.squeeze_challenge())
     gamma = int(transcript.squeeze_challenge())
-    permutations = [
-        permutation_prover.commit_permutation(
-            params, pk, cols_all[i], beta, gamma, rng, transcript,
-        )
+    # every z column of the call at once (kernel G on the card), after the
+    # rng draws of each circuit's chunks, then of each circuit's lookups
+    chunks = [
+        permutation_prover.permutation_chunks(params, pk, cols_all[i], beta, rng)
         for i in range(len(circuits))
     ]
-
+    lookup_inputs = [
+        [lookup_prover.product_inputs(perm, pk, params, rng) for perm in proof_lookups]
+        for proof_lookups in lookups_permuted
+    ]
+    lookup_zs, chunk_zs, _ = z_columns(
+        F, cs.blinding_factors(), beta, gamma,
+        [columns for proof in lookup_inputs for columns, _ in proof],
+        [proof_chunks for proof_chunks, _ in chunks],
+        omega_pw=permutation_prover.omega_powers(params, pk) if cs.permutation.columns else None,
+    )
+    permutations = [
+        permutation_prover.commit_permutation(params, pk, zs, blinds, transcript)
+        for zs, (_, blinds) in zip(chunk_zs, chunks)
+    ]
+    lookup_zs = iter(lookup_zs)
     lookups_committed = [
         [
-            lookup_prover.commit_product(perm, pk, params, domain, beta, gamma, rng, transcript)
-            for perm in proof_lookups
+            lookup_prover.commit_product(perm, next(lookup_zs), blind, params, domain, transcript)
+            for perm, (_, blind) in zip(proof_lookups, proof_inputs)
         ]
-        for proof_lookups in lookups_permuted
+        for proof_lookups, proof_inputs in zip(lookups_permuted, lookup_inputs)
     ]
 
     vanishing_committed = vanishing.commit_random(params, domain, rng, transcript)

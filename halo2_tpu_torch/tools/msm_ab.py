@@ -117,8 +117,12 @@ shape and, with `--proofs`, per proof:
   total; "_n1"); and the grand products' z columns and the Horner fold as
   the tree computes them (kernels G and H, or its provers' z columns and its
   stacked fold on kernels A and C before them): a lookup's z column, a
-  permutation chunk's of 2 and of 6 columns and the fold of 3 pieces, at
-  2^14 and (but the 6 columns) 2^17; with `--sweep` (trees whose scans take
+  permutation chunk's of 2 and of 6 columns, a proof's z columns
+  ("z_columns": BenchCircuit's lookup and chunk of 2 columns, one call of
+  kernel G where the tree has `z_columns`, else a call a column;
+  "z_columns_5": two lookups and three chained chunks of 6 columns) and
+  the fold of 3 pieces, at 2^14 and (but the 6 columns) 2^17; with
+  `--sweep` (trees whose scans take
   SCAN_ROWS / SCAN_THREADS), csrc/scan.cu and csrc/polyeval.cu built again
   at each (rows a thread, threads a tile) of SCAN_SWEEP, and for each the
   device ms of those calls at 2^14 and 2^17, whether each output's
@@ -443,7 +447,7 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
             pp, b, s = round_fold(pp, b, s, m, u, uinv, ctx)
             return pp, b, s, round_emit(pp, b, s, m // 2, z, rands, ctx)
     ctx, p, n = FieldCtx(Fp), Fp.MODULUS, 1 << log_n
-    lookup_z, perm_z, horner_fold = z_columns(Fp, ctx, dev)
+    lookup_z, perm_z, horner_fold, proof_z = z_columns(Fp, ctx, dev)
     point_powers = getattr(polyeval, "point_powers", None)
     if point_powers is None:  # before the powers of a host point
 
@@ -502,14 +506,17 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
         "perm_z_2": lambda: perm_z(zc[:2], zc[2:4], omega, beta, gamma, dp6[:2], init, blind),
         "perm_z_6": lambda: perm_z(zc[:6], zc[6:12], omega, beta, gamma, dp6, init, blind),
         "horner_fold": lambda: horner_fold(zc[:3], points[2]),
+        "z_columns": lambda: proof_z([zc[:4]], [(zc[:2], zc[2:4], dp6[:2])], omega, beta, gamma, blind),
+        "z_columns_5": lambda: proof_z([zc[:4], zc[4:8]], [(zc[:6], zc[6:12], dp6)] * 3, omega, beta, gamma, blind),
+        "z_columns_2^17": lambda: proof_z([zc17], [(zc17[:2], zc17[2:4], dp6[:2])], omega17, beta, gamma, blind),
         "lookup_z_2^17": lambda: lookup_z(zc17, beta, gamma, blind),
         "perm_z_2_2^17": lambda: perm_z(zc17[:2], zc17[2:4], omega17, beta, gamma, dp6[:2], init, blind),
         "horner_fold_2^17": lambda: horner_fold(zc17[:3], points[2]),
     }
 
-    def canonical_sha256(out):  # a tensor, or a tuple of them (one round's outputs)
+    def canonical_sha256(out):  # a tensor, or a tuple or list of them (one round's, a proof's z columns)
         h = hashlib.sha256()
-        for t in (out if isinstance(out, tuple) else (out,)):
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
             h.update(from_mont(t.reshape(-1, 16), ctx).cpu().numpy().tobytes())
         return h.hexdigest()
 
@@ -599,9 +606,25 @@ def jit_section(dev, eval_m: int, log_n: int = 14, sweep: bool = False) -> None:
 
 def z_columns(F, ctx, dev):
     """(lookup_z(cols, beta, gamma, rand_rows), perm_z(cols, sigmas, omega_pw,
-    beta, gamma, dpows, init, rand_rows) -> z, horner_fold(pieces, x)) as the
-    tree computes them: kernels G and H where it has them, else its
-    provers' z columns and its stacked fold (kernel A around kernel C)."""
+    beta, gamma, dpows, init, rand_rows) -> z, horner_fold(pieces, x),
+    proof_z(lookups, chunks, omega_pw, beta, gamma, rand_rows) -> every z
+    and the chunks' last_z) as the tree computes them: kernels G and H
+    where it has them (a proof's z columns one call of kernel G where it
+    has z_columns, else a call a column, the chunks chained by last_z),
+    else its provers' z columns and its stacked fold (kernel A around
+    kernel C). proof_z's lookups are lists of four columns, its chunks
+    (cols, sigmas, dpows), all with the same random rows."""
+
+    def chained(lookup_z, perm_z):  # a proof's z columns as a call a column
+        def proof_z(lookups, chunks, omega_pw, beta, gamma, rand_rows):
+            out, init = [lookup_z(cols, beta, gamma, rand_rows) for cols in lookups], None
+            for cols, sigmas, dpows in chunks:
+                z, init = perm_z(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows)
+                out += [z, init]
+            return out
+
+        return proof_z
+
     from halo2_tpu_torch.ops import polyeval
 
     try:
@@ -613,25 +636,35 @@ def z_columns(F, ctx, dev):
         def lookup_z(cols, beta, gamma, rand_rows):
             return _lookup_z(F, rand_rows.shape[0], *cols, ctx.const(beta, dev), ctx.const(gamma, dev), rand_rows)
 
-        def perm_z(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
+        def perm_zl(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
             return _perm_z(F, rand_rows.shape[0], torch.stack(cols), torch.stack(sigmas), omega_pw,
-                           ctx.const(beta, dev), ctx.const(gamma, dev), ctx.consts(dpows, dev), init, rand_rows)[0]
+                           ctx.const(beta, dev), ctx.const(gamma, dev), ctx.consts(dpows, dev), init, rand_rows)
 
         def horner_fold(pieces, x):
             return polyeval.horner_fold_mont(F, torch.stack(pieces), x)
 
-        return lookup_z, perm_z, horner_fold
+        return (lookup_z, lambda *args: perm_zl(*args)[0], horner_fold, chained(lookup_z, perm_zl))
 
     def lookup_z(cols, beta, gamma, rand_rows):
         return gp.lookup_z(F, rand_rows.shape[0], *cols, beta, gamma, rand_rows)
 
-    def perm_z(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
-        return gp.perm_z(F, rand_rows.shape[0], cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows)[0]
+    def perm_zl(cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows):
+        return gp.perm_z(F, rand_rows.shape[0], cols, sigmas, omega_pw, beta, gamma, dpows, init, rand_rows)
 
     def horner_fold(pieces, x):
         return polyeval.horner_fold_mont(F, pieces, x)
 
-    return lookup_z, perm_z, horner_fold
+    if not hasattr(gp, "z_columns"):
+        return lookup_z, lambda *args: perm_zl(*args)[0], horner_fold, chained(lookup_z, perm_zl)
+
+    def proof_z(lookups, chunks, omega_pw, beta, gamma, rand_rows):
+        lzs, czs, lasts = gp.z_columns(F, rand_rows.shape[0], beta, gamma,
+                                       [gp.LookupColumns(*cols, rand_rows) for cols in lookups],
+                                       [[gp.Chunk(cols, sigmas, dpows, rand_rows) for cols, sigmas, dpows in chunks]],
+                                       omega_pw)
+        return [*lzs, *(t for pair in zip(czs[0], lasts[0]) for t in pair)]
+
+    return lookup_z, lambda *args: perm_zl(*args)[0], horner_fold, proof_z
 
 
 def sites_section(dev) -> None:
